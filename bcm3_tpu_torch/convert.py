@@ -1,0 +1,82 @@
+"""Carry sampler state across from the JAX package.
+
+The JAX package's `PTState` and `BlockProposal` are pytrees of arrays; given
+as mappings of field name -> numpy array (e.g.
+``{f: np.asarray(getattr(state, f)) for f in STATE_FIELDS}``), these
+functions build the port's objects on a chosen device and dtype. One
+mutate/exchange step can then start from identical state in both packages.
+The port keeps no PRNG key in its state (its randomness is the sampler's
+`torch.Generator`), so the JAX state's `key` is not read.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from bcm3_tpu_torch.sampler.proposal import BlockProposal
+from bcm3_tpu_torch.sampler.pt import PTState
+
+STATE_FIELDS = (
+    "x", "lprior", "llh", "att_mut", "acc_mut", "att_exc", "acc_exc",
+    "history", "hist_adds", "swap_parity",
+)
+PROPOSAL_FIELDS = (
+    "means", "chols", "inv_chols", "log_weights", "log_c", "scales",
+    "acc_ema", "selected",
+)
+PROPOSAL_META = ("t_dof", "target_accept", "update_rule", "symmetric")
+
+
+def _tensor(a, dtype, device):
+    """A copy of a (possibly read-only) array as a tensor."""
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def pt_state_from_arrays(
+    arrays: Mapping[str, np.ndarray], device, dtype: torch.dtype
+) -> PTState:
+    """A PTState from the JAX package's state fields as numpy arrays."""
+
+    def real(name):
+        return _tensor(arrays[name], dtype, device)
+
+    def count(name):
+        return _tensor(arrays[name], torch.int32, device)
+
+    return PTState(
+        x=real("x"),
+        lprior=real("lprior"),
+        llh=real("llh"),
+        att_mut=count("att_mut"),
+        acc_mut=count("acc_mut"),
+        att_exc=count("att_exc"),
+        acc_exc=count("acc_exc"),
+        history=_tensor(arrays["history"], torch.float32, device),
+        hist_adds=int(arrays["hist_adds"]),
+        swap_parity=int(arrays["swap_parity"]),
+    )
+
+
+def block_proposal_from_arrays(
+    arrays: Mapping[str, np.ndarray],
+    meta: Mapping[str, object],
+    device,
+    dtype: torch.dtype,
+) -> BlockProposal:
+    """A BlockProposal from the JAX package's proposal fields as numpy
+    arrays, in its shared (L, K, ...) mixture layout, plus its static
+    fields (`PROPOSAL_META`)."""
+    if meta.get("clustered", False):
+        raise NotImplementedError("clustered proposals are not ported yet (ROADMAP A6)")
+
+    return BlockProposal(
+        **{f: _tensor(arrays[f], dtype, device) for f in PROPOSAL_FIELDS[:-1]},
+        selected=_tensor(arrays["selected"], torch.long, device),
+        t_dof=float(meta["t_dof"]),
+        target_accept=float(meta["target_accept"]),
+        update_rule=int(meta["update_rule"]),
+        symmetric=bool(meta["symmetric"]),
+    )

@@ -1,0 +1,123 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in bcm3_tpu_torch/csrc/*.cu expose a plain C interface. At
+first use they are compiled with nvcc for Hopper (sm_90a) into one shared
+library under bcm3_tpu_torch/_kernels_build/, named by a hash of the
+sources and flags, and loaded with ctypes. A second process finds the
+library already built and only loads it.
+
+Nothing here runs at import time: the CPU tests import every module of
+the package on machines that have no nvcc and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_kernels_build"
+
+# --fmad=false: no contraction of a*b+c into a fused multiply-add, so the
+# kernels round operation by operation like their plain PyTorch versions
+# (one elementwise op per kernel there). The adaptive DP5 step sequence of
+# B2 in float32 is sensitive to last-bit differences; with contraction on,
+# a small share of lanes took another step sequence than the plain version.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",
+)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+_F32 = ctypes.c_float
+
+# C entry points: name -> argument types (every pointer and the stream
+# are c_void_p; every entry returns the cudaGetLastError() code)
+_SIGNATURES = {
+    # ka, ke, kel, initial_dose, interval, dose, out_gut, out_cen,
+    # lanes, patients, intervals, stream
+    "bcm3_poppk_propagate_f32": [_P] * 8 + [_I64, _I32, _I32, _P],
+    "bcm3_poppk_propagate_f64": [_P] * 8 + [_I64, _I32, _I32, _P],
+    # ka, ke, kel, k_transit, n_transit, dose0, grid, amt, central, ok,
+    # lanes, stops, trips, rtol, atol, min_dt, first_dt, stream
+    "bcm3_transit_dp5_f32": [_P] * 10
+    + [_I64, _I32, _I32, _F32, _F32, _F32, _F32, _P],
+}
+
+_loaded: ctypes.CDLL | None = None
+last_build_seconds: float | None = None
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libbcm3_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels if this exact source set is not built yet.
+
+    Returns the library path. The compiler's output (register and spill
+    counts from -Xptxas=-v) is kept beside the library as a .log file."""
+    global last_build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    last_build_seconds = time.perf_counter() - t0
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _loaded
+    if _loaded is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _loaded = lib
+    return _loaded
+
+
+def check_launch(name: str, code: int) -> None:
+    """Raise if a launch reported a CUDA error code."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error code {code}")

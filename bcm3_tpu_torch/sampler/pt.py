@@ -1,0 +1,644 @@
+"""Parallel-tempered Metropolis-Hastings sampler on torch tensors.
+
+Counterpart of bcm3_tpu/sampler/pt.py (reference: src/sampler/SamplerPT.cpp,
+SamplerPTChain.cpp). The whole chain population, E independent ensembles
+of an L-temperature ladder, is one stacked tensor on one device, so every
+likelihood evaluation of an iteration is one batched call. The JAX
+package runs each segment as a jitted `lax.scan`; here a segment is an
+eager Python loop of batched tensor operations.
+
+Semantics as in the JAX package and the reference:
+- power posterior lprior + T*llh with the T=0 chain sampling directly
+  from the prior and the -inf*0 convention (SamplerPTChain.cpp:221-240)
+- power-law temperature ladder with T[0] = 0 (SamplerPT.cpp:87-93)
+- deterministic even/odd replica exchange within each ensemble's ladder
+  (SamplerPT.cpp:277-306)
+- per-block mixture proposals with the MH correction and acceptance-EMA
+  scale adaptation (bcm3_tpu_torch/sampler/proposal.py)
+- a float32 ring-buffer sample history with subsampling (SampleHistory.cpp)
+- thinned emission, optionally of the fixed-temperature rows only
+  (SamplerPT.cpp:321-330)
+
+Randomness comes from one explicit `torch.Generator` on the sampler's
+device. `_mutate` and `_exchange` take their random numbers as a `draws`
+argument, so a test can feed them the JAX package's own draws.
+
+Not ported yet, and refused with NotImplementedError: proposal adaptation
+and clustered proposals (ROADMAP A6), checkpoints (A7), the stochastic swap
+schemes (A3), t-distributed proposals (A6) and sharding over devices (A13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from bcm3_tpu_torch.likelihoods import Likelihood
+from bcm3_tpu_torch.model.prior import Prior
+from bcm3_tpu_torch.sampler import blocking as blocking_mod
+from bcm3_tpu_torch.sampler import proposal as prop_mod
+from bcm3_tpu_torch.sampler.proposal import BlockProposal
+from bcm3_tpu_torch.stats.gmm import GMM
+
+logger = logging.getLogger("bcm3_tpu_torch.sampler")
+
+_NEG_INF = -math.inf
+
+
+@dataclass
+class PTConfig:
+    """Sampler configuration; defaults match the reference option tables
+    (reference: Sampler.cpp:142-149, SamplerPT.cpp:147-172)."""
+
+    num_samples: int = 2500
+    use_every_nth: int = 1
+    seed: int = 0
+
+    num_chains: int = 6
+    blocking_strategy: str = "one_block"
+    proposal_type: str = "gaussian_mixture"
+    adapt_proposal_samples: int = 2000
+    adapt_proposal_times: int = 2
+    max_history_size: int = 2000
+    swapping_scheme: str = "deterministic_even_odd"
+    num_exploration_steps: int = 1
+    temperature_schedule_power: float = 3.0
+    temperature_schedule_max: float = 1.0
+    proposal_t_dof: float = 0.0
+    initial_position_tries: int = 100
+    # independent PT replicas advanced in the same batched computation;
+    # each owns a full ladder and exchanges only internally
+    num_ensembles: int = 1
+    # emit only the fixed-temperature (T=1) row of each ladder
+    # (reference: SamplerPT.cpp:321-330)
+    emit_fixed_only: bool = False
+    # dtype of the emitted copies (None = the sampler dtype)
+    emit_dtype: Optional[torch.dtype] = None
+    device: str = "cpu"
+    dtype: torch.dtype = torch.float64
+    # JAX-package options that the port refuses until they are ported
+    checkpoint_file: str = ""
+    shard_over_devices: bool = False
+
+
+def temperature_ladder(
+    num_chains: int, power: float = 3.0, t_max: float = 1.0
+) -> np.ndarray:
+    """Power-law ladder with T[0] = 0 (reference: SamplerPT.cpp:87-93)."""
+    temps = np.zeros(num_chains)
+    for i in range(1, num_chains - 1):
+        temps[i] = t_max * (i / (num_chains - 1)) ** power
+    temps[num_chains - 1] = t_max
+    return temps
+
+
+@dataclass
+class PTState:
+    x: torch.Tensor  # (C, D)
+    lprior: torch.Tensor  # (C,)
+    llh: torch.Tensor  # (C,)
+    att_mut: torch.Tensor  # (C,) int32
+    acc_mut: torch.Tensor  # (C,) int32
+    att_exc: torch.Tensor  # (C,) int32
+    acc_exc: torch.Tensor  # (C,) int32
+    # (C, H*D) float32 ring buffer, row h of chain c at columns
+    # [h*D, (h+1)*D) (the JAX package's flat layout); updated in place
+    history: torch.Tensor
+    hist_adds: int = 0  # number of AddSample calls (lockstep)
+    swap_parity: int = 0  # 0 -> next swap starts even
+
+
+@dataclass
+class BlockDraws:
+    """Random numbers of one block's mutate move, per chain."""
+
+    u_scale: torch.Tensor  # (C,) uniforms for the scale update
+    gumbel: torch.Tensor  # (C, K) Gumbel noise for the component pick
+    z: torch.Tensor  # (C, d) standard normals for the step
+    u_accept: torch.Tensor  # (C,) uniforms for the MH test
+
+
+@dataclass
+class MutateDraws:
+    prior: torch.Tensor  # (C, D) prior draw for the T=0 chains
+    blocks: List[BlockDraws]
+
+
+@dataclass
+class IterationDraws:
+    exchange_u: Optional[torch.Tensor]  # (C,) uniforms; None without exchange
+    mutate: List[MutateDraws] = field(default_factory=list)  # per exploration step
+
+
+class SamplerPT:
+    """Parallel-tempered MH sampler over a chain population."""
+
+    def __init__(
+        self,
+        prior: Prior,
+        likelihood: Likelihood,
+        config: PTConfig,
+        sample_handlers: Optional[Sequence] = None,
+    ):
+        self.prior = prior
+        self.likelihood = likelihood
+        self.config = config
+        self.sample_handlers = list(sample_handlers or [])
+        self.device = torch.device(config.device)
+        self.dtype = config.dtype
+        self._refuse_unported(config)
+
+        C = config.num_chains
+        E = max(1, config.num_ensembles)
+        self.ladder_size = C
+        self.num_ensembles = E
+        self.num_chains = E * C
+        self.num_variables = prior.num_variables
+        self.ladder = temperature_ladder(
+            C, config.temperature_schedule_power, config.temperature_schedule_max
+        )
+        self.temperatures = np.tile(self.ladder, E)
+        self._temps = torch.as_tensor(self.temperatures, dtype=self.dtype, device=self.device)
+        self._t0_mask = self._temps == 0.0
+        self._emit_L = 1 if (config.emit_fixed_only and C > 1) else C
+        self.emit_ladder = self.ladder[C - self._emit_L:]
+
+        # History sizing (reference: SamplerPT.cpp:115-128)
+        expected = config.adapt_proposal_samples * config.use_every_nth
+        if C > 1:
+            expected *= config.num_exploration_steps + 1
+        expected = max(expected, 1)
+        self.history_subsampling = max(
+            1, (expected + config.max_history_size - 1) // config.max_history_size
+        )
+        self.history_size = max(1, expected // self.history_subsampling)
+
+        self.blocks: List[np.ndarray] = blocking_mod.get_blocks(
+            config.blocking_strategy, self.num_variables
+        )
+        self._block_idx = [torch.as_tensor(b, device=self.device) for b in self.blocks]
+        self._bounds = [
+            tuple(
+                torch.as_tensor(a[b], dtype=self.dtype, device=self.device)
+                for a in (prior.lower, prior.upper)
+            )
+            for b in self.blocks
+        ]
+        self.proposals: List[BlockProposal] = self._initial_proposals()
+
+        seed = config.seed if config.seed != 0 else int(time.time_ns() % (2**31))
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.total_evaluations = 0
+
+    @staticmethod
+    def _refuse_unported(cfg: PTConfig):
+        def refuse(what, item):
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+        if cfg.proposal_type not in ("gaussian_mixture", "global_covariance"):
+            refuse(f"proposal_type '{cfg.proposal_type}'", "A6")
+        if cfg.blocking_strategy not in ("one_block", "no_blocking"):
+            refuse(f"blocking_strategy '{cfg.blocking_strategy}'", "A6")
+        if cfg.num_chains > 1 and cfg.swapping_scheme != "deterministic_even_odd":
+            refuse(f"swapping_scheme '{cfg.swapping_scheme}'", "A3")
+        if (
+            cfg.adapt_proposal_samples > 0
+            and cfg.adapt_proposal_times > 0
+            and cfg.adapt_proposal_samples < cfg.num_samples
+        ):
+            refuse("proposal adaptation (set adapt_proposal_times=0)", "A6")
+        if cfg.proposal_t_dof > 0.0:
+            refuse("proposal_t_dof > 0", "A6")
+        if cfg.checkpoint_file:
+            refuse("checkpoint_file", "A7")
+        if cfg.shard_over_devices:
+            refuse("shard_over_devices", "A13")
+
+    @property
+    def expected_emitted_samples(self) -> int:
+        """Rows in the output store: per emitted step, one row per ensemble."""
+        return self.config.num_samples * self.num_ensembles
+
+    # ------------------------------------------------------------------
+    # Proposal construction
+
+    def _fallback_gmm(self, block: np.ndarray) -> GMM:
+        """Single Gaussian with prior mean/variance (reference:
+        ProposalGaussianMixture.cpp:212-246)."""
+        mean = self.prior.marginal_mean()[block]
+        var = self.prior.marginal_variance()[block]
+        gmm = GMM.from_params(mean[None, :], np.diag(var)[None, :, :], np.ones(1))
+        if gmm is None:
+            gmm = GMM.from_params(
+                np.zeros((1, len(block))), np.eye(len(block))[None], np.ones(1)
+            )
+        return gmm
+
+    def _initial_proposals(self) -> List[BlockProposal]:
+        return [
+            prop_mod.build_block_proposal(
+                [self._fallback_gmm(block)] * self.ladder_size,
+                self.num_chains,
+                len(block),
+                self.dtype,
+                self.device,
+                t_dof=self.config.proposal_t_dof,
+                proposal_type=self.config.proposal_type,
+            )
+            for block in self.blocks
+        ]
+
+    # ------------------------------------------------------------------
+    # Evaluation
+
+    def _evaluate(self, x):
+        """Batched prior + likelihood evaluation, x: (C, D). NaNs become
+        -inf (proposal rejection), the reference's soft-fail convention
+        (reference: LikelihoodPopPKTrajectory.cpp:400-424)."""
+        lprior = self.prior.log_pdf(x)
+        llh = self.likelihood.log_prob_batched(x)
+        if self.likelihood.learning_rate != 1.0:
+            llh = llh * self.likelihood.learning_rate
+        lprior = torch.where(torch.isnan(lprior), _NEG_INF, lprior)
+        llh = torch.where(torch.isnan(llh), _NEG_INF, llh)
+        return lprior.to(self.dtype), llh.to(self.dtype)
+
+    def _lpp(self, lprior, llh):
+        """Power posterior with the reference's T=0 convention
+        (reference: SamplerPTChain.cpp:231-237)."""
+        return torch.where(self._t0_mask, lprior, lprior + self._temps * llh)
+
+    # ------------------------------------------------------------------
+    # Random numbers
+
+    def draw(self, proposals: Sequence[BlockProposal]) -> IterationDraws:
+        """The random numbers of one iteration, from the sampler's generator."""
+        g, dt, dev = self.generator, self.dtype, self.device
+        C = self.num_chains
+
+        def rand(*shape):
+            return torch.rand(shape, generator=g, dtype=dt, device=dev)
+
+        tiny = torch.finfo(dt).tiny
+        exchange_u = rand(C) if self.ladder_size > 1 else None
+        steps = self.config.num_exploration_steps if self.ladder_size > 1 else 1
+        mutate = []
+        for _ in range(steps):
+            prior = self.prior.sample(g, (C,), dt)
+            blocks = []
+            for block, prop in zip(self.blocks, proposals):
+                u_scale = rand(C)
+                gumbel = -torch.log(-torch.log(torch.clamp(rand(C, prop.max_components), min=tiny)))
+                z = torch.randn((C, len(block)), generator=g, dtype=dt, device=dev)
+                blocks.append(BlockDraws(u_scale, gumbel, z, rand(C)))
+            mutate.append(MutateDraws(prior, blocks))
+        return IterationDraws(exchange_u, mutate)
+
+    # ------------------------------------------------------------------
+    # Moves
+
+    def _history_add(self, state: PTState, x, mask=None) -> PTState:
+        """Ring-buffer add with subsampling for all T != 0 chains
+        (reference: SampleHistory.cpp AddSample)."""
+        n = state.hist_adds + 1
+        if n % self.history_subsampling == 0:
+            ix = ((n // self.history_subsampling) - 1) % self.history_size
+            write = ~self._t0_mask if mask is None else (~self._t0_mask & mask)
+            D = self.num_variables
+            cols = state.history[:, ix * D : (ix + 1) * D]
+            cols.copy_(torch.where(write[:, None], x.to(torch.float32), cols))
+        return dataclasses.replace(state, hist_adds=n)
+
+    def _mask_per_chain(self, new: BlockProposal, old: BlockProposal) -> BlockProposal:
+        """Keep the old per-chain proposal state of the T=0 chains."""
+        m = self._t0_mask
+        return dataclasses.replace(
+            new,
+            scales=torch.where(m[:, None], old.scales, new.scales),
+            acc_ema=torch.where(m[:, None], old.acc_ema, new.acc_ema),
+            selected=torch.where(m, old.selected, new.selected),
+        )
+
+    def _mutate(self, state: PTState, proposals, draws: MutateDraws):
+        """One mutate move for the whole chain population
+        (reference: SamplerPTChain.cpp MutateMove:217-313)."""
+        C = self.num_chains
+        E, L = self.num_ensembles, self.ladder_size
+        t0 = self._t0_mask
+        x, lprior, llh = state.x, state.lprior, state.llh
+        att_mut, acc_mut = state.att_mut, state.acc_mut
+        new_proposals = []
+
+        for bi, block in enumerate(self.blocks):
+            prop = proposals[bi]
+            bd = draws.blocks[bi]
+            idx = self._block_idx[bi]
+            lower, upper = self._bounds[bi]
+            d = len(block)
+
+            # 1. adaptive scale update (skipped for T=0 chains)
+            prop = self._mask_per_chain(prop_mod.update_scales(prop, bd.u_scale), prop)
+
+            # 2. propose new block positions
+            x_block = x[:, idx]
+            nb, sel, log_fwd_resp = prop_mod.propose_ensemble(
+                prop,
+                x_block.reshape(E, L, d),
+                lower,
+                upper,
+                bd.gumbel.reshape(E, L, -1),
+                bd.z.reshape(E, L, d),
+            )
+            new_block = nb.reshape(C, d)
+            x_new = x.clone()
+            x_new[:, idx] = new_block
+            # T=0 chains: a direct prior draw replaces the whole vector,
+            # and only in the first block (reference: SamplerPTChain.cpp:221-240)
+            x_new = torch.where(t0[:, None], draws.prior if bi == 0 else x, x_new)
+            # Dirichlet residual overwrite (reference: SamplerPTChain.cpp:270-278)
+            for blk in self.prior.dirichlet_blocks:
+                s, r = blk.start, blk.residual_index
+                x_new[:, r] = 1.0 - x_new[:, s:r].sum(dim=1)
+
+            # 3. evaluate
+            new_lprior, new_llh = self._evaluate(x_new)
+            new_lpp = self._lpp(new_lprior, new_llh)
+            cur_lpp = self._lpp(lprior, llh)
+
+            # 4. MH test (reference: SamplerPTChain.cpp TestSample:465-482)
+            prop = dataclasses.replace(prop, selected=sel.reshape(C))
+            mh = prop_mod.mh_log_ratio_ensemble(
+                prop,
+                x_block.reshape(E, L, d),
+                nb,
+                log_fwd_resp=log_fwd_resp,
+            ).reshape(C)
+            log_u = torch.log(bd.u_accept)
+            accept = (new_lpp > _NEG_INF) & (log_u < (new_lpp - cur_lpp) + mh)
+            # T=0: always accept, once
+            accept = torch.where(t0, bi == 0, accept)
+
+            x = torch.where(accept[:, None], x_new, x)
+            lprior = torch.where(accept, new_lprior, lprior)
+            llh = torch.where(accept, new_llh, llh)
+
+            # 5. acceptance bookkeeping
+            counted = ~t0 if bi > 0 else torch.ones_like(t0)
+            att_mut = att_mut + counted.to(att_mut.dtype)
+            acc_mut = acc_mut + (accept & counted).to(acc_mut.dtype)
+
+            prop = self._mask_per_chain(prop_mod.notify_accepted(prop, accept), prop)
+            new_proposals.append(prop)
+
+        state = dataclasses.replace(
+            state, x=x, lprior=lprior, llh=llh, att_mut=att_mut, acc_mut=acc_mut
+        )
+        return self._history_add(state, x), new_proposals
+
+    def _exchange(self, state: PTState, u: torch.Tensor) -> PTState:
+        """Deterministic even/odd replica exchange as a masked chain-axis
+        permutation (reference: SamplerPT.cpp DoExchangeMove:277-306,
+        SamplerPTChain.cpp ExchangeMove:328-381). u: (C,) uniforms. Pairs
+        form only within each ensemble's own ladder."""
+        L, E, total = self.ladder_size, self.num_ensembles, self.num_chains
+        temps = self._temps
+        idx = torch.arange(total, device=self.device)
+        local = idx % L
+        base = idx - local
+
+        # previous_swap_even toggling (reference: SamplerPT.cpp:283-291)
+        start = 1 if state.swap_parity == 1 else 0
+        rel = local - start
+        is_leader = (rel >= 0) & (rel % 2 == 0)
+        if L % 2 == 1:
+            # odd ladder: drop the wrap-around leader (the pair re-forms
+            # at the next parity), as the JAX package does
+            is_leader = is_leader & (local != L - 1)
+        partner = base + (local + 1) % L
+
+        lprior_p = state.lprior[partner]
+        llh_p = state.llh[partner]
+        # power posteriors after a hypothetical swap
+        prop_lpp_self = torch.where(temps == 0.0, lprior_p, temps * llh_p + lprior_p)
+        temps_partner = temps[partner]
+        prop_lpp_partner = torch.where(
+            temps_partner == 0.0, state.lprior, temps_partner * state.llh + state.lprior
+        )
+        cur_lpp = self._lpp(state.lprior, state.llh)
+        log_tp = (prop_lpp_self + prop_lpp_partner) - (cur_lpp + cur_lpp[partner])
+        swap_leader = is_leader & (torch.log(u) < log_tp)
+
+        def roll_within(mask):
+            return torch.roll(mask.reshape(E, L), 1, dims=1).reshape(total)
+
+        swap_follower = roll_within(swap_leader)
+        perm = torch.where(
+            swap_leader, partner, torch.where(swap_follower, base + (local - 1) % L, idx)
+        )
+        x = state.x[perm]
+        state = dataclasses.replace(
+            state,
+            x=x,
+            lprior=state.lprior[perm],
+            llh=state.llh[perm],
+            att_exc=state.att_exc + is_leader.to(state.att_exc.dtype),
+            acc_exc=state.acc_exc + swap_leader.to(state.acc_exc.dtype),
+            swap_parity=1 - state.swap_parity,
+        )
+        # both members of every pair record history (T != 0 chains)
+        # (reference: SamplerPTChain.cpp:370-376)
+        if L % 2 == 1:
+            return self._history_add(state, x, mask=is_leader | roll_within(is_leader))
+        return self._history_add(state, x)
+
+    def _iteration(self, state: PTState, proposals, draws: IterationDraws):
+        """Exchange then mutate, or mutate alone for a one-chain ladder."""
+        if self.ladder_size > 1:
+            state = self._exchange(state, draws.exchange_u)
+            for ei in range(self.config.num_exploration_steps):
+                state, proposals = self._mutate(state, proposals, draws.mutate[ei])
+        else:
+            state, proposals = self._mutate(state, proposals, draws.mutate[0])
+        return state, proposals
+
+    def _run_segment(self, state: PTState, proposals, n_emit: int):
+        """n_emit emitted steps of use_every_nth iterations each. Returns the
+        new state and proposals and the emitted (x, lprior, llh) on the host
+        as numpy, (n_emit, E * L_emit, ...)."""
+        L, Le = self.ladder_size, self._emit_L
+        xs, lps, lls = [], [], []
+        for _ in range(n_emit):
+            for _ in range(self.config.use_every_nth):
+                state, proposals = self._iteration(state, proposals, self.draw(proposals))
+            x, lp, ll = state.x, state.lprior, state.llh
+            if Le != L:
+                # fixed-temperature rows only (reference: SamplerPT.cpp:321-330)
+                x = x.reshape(-1, L, x.shape[-1])[:, L - 1]
+                lp = lp.reshape(-1, L)[:, L - 1]
+                ll = ll.reshape(-1, L)[:, L - 1]
+            xs.append(x)
+            lps.append(lp)
+            lls.append(ll)
+        edt = self.config.emit_dtype or self.dtype
+
+        def host(parts):
+            return torch.stack(parts).to("cpu", edt).numpy()
+
+        return state, proposals, (host(xs), host(lps), host(lls))
+
+    # ------------------------------------------------------------------
+    # Host orchestration
+
+    def _find_starting_position(self):
+        """Prior draws until every chain has a finite power posterior
+        (reference: SamplerPTChain.cpp FindStartingPosition:188-215)."""
+        C = self.num_chains
+        temps = self.temperatures
+        x = np.zeros((C, self.num_variables))
+        lprior = np.full(C, _NEG_INF)
+        llh = np.full(C, _NEG_INF)
+        found = np.zeros(C, dtype=bool)
+        for _ in range(self.config.initial_position_tries):
+            draw = self.prior.sample(self.generator, (C,), self.dtype)
+            dl, dllh = self._evaluate(draw)
+            draw, dl, dllh = (t.cpu().numpy() for t in (draw, dl, dllh))
+            with np.errstate(invalid="ignore"):
+                # power posterior with the T=0 convention (_lpp)
+                lpp = np.where(temps == 0.0, dl, dl + temps * dllh)
+            take = np.isfinite(lpp) & ~found
+            x[take] = draw[take]
+            lprior[take] = dl[take]
+            llh[take] = dllh[take]
+            found |= np.isfinite(lpp)
+            if found.all():
+                break
+        if not found.all():
+            raise RuntimeError(
+                "Could not find starting position with finite power posterior "
+                f"after {self.config.initial_position_tries} tries"
+            )
+
+        def dev(a):
+            return torch.as_tensor(a, dtype=self.dtype, device=self.device)
+
+        return dev(x), dev(lprior), dev(llh)
+
+    def _init_state(self) -> PTState:
+        x, lprior, llh = self._find_starting_position()
+        C = self.num_chains
+
+        def zeros():
+            return torch.zeros(C, dtype=torch.int32, device=self.device)
+
+        return PTState(
+            x=x,
+            lprior=lprior,
+            llh=llh,
+            att_mut=zeros(),
+            acc_mut=zeros(),
+            att_exc=zeros(),
+            acc_exc=zeros(),
+            history=torch.zeros(
+                (C, self.history_size * self.num_variables),
+                dtype=torch.float32,
+                device=self.device,
+            ),
+        )
+
+    def run(self):
+        """Run the sampler (reference: SamplerPT.cpp RunImpl:185-260).
+
+        Returns a dict with samples (S*E, L_emit, D), log_prior and
+        log_likelihood (S*E, L_emit), temperatures and acceptance counts."""
+        cfg = self.config
+        t_start = time.perf_counter()
+        state = self._init_state()
+        proposals = list(self.proposals)
+
+        # emit in chunks of ~32 MB on the host
+        edt = cfg.emit_dtype or self.dtype
+        itemsize = torch.finfo(edt).bits // 8
+        bytes_per_emit = self.num_ensembles * self._emit_L * (self.num_variables + 2) * itemsize
+        chunk = max(1, (32 << 20) // bytes_per_emit)
+
+        all_x, all_lprior, all_llh = [], [], []
+        emitted = 0
+        while emitted < cfg.num_samples:
+            m = min(chunk, cfg.num_samples - emitted)
+            state, proposals, (xs, lps, lls) = self._run_segment(state, proposals, m)
+            xs, lps, lls = (self._pool_ensembles(a) for a in (xs, lps, lls))
+            all_x.append(xs)
+            all_lprior.append(lps)
+            all_llh.append(lls)
+            for handler in self.sample_handlers:
+                handler.receive_samples(xs, lps, lls, self.emit_ladder)
+            emitted += m
+        self.proposals = proposals
+        self.state = state
+
+        elapsed = time.perf_counter() - t_start
+        # att_mut is int32 per chain; the population total needs int64
+        self.total_evaluations = int(state.att_mut.sum(dtype=torch.int64))
+        evals_per_sec = self.total_evaluations / max(elapsed, 1e-9)
+        logger.info(
+            "Sampling finished: %d evaluations in %.2fs (%.1f evals/s)",
+            self.total_evaluations,
+            elapsed,
+            evals_per_sec,
+        )
+        self._log_statistics(state)
+
+        def host(t):
+            return t.cpu().numpy()
+
+        return {
+            "samples": np.concatenate(all_x, axis=0),
+            "log_prior": np.concatenate(all_lprior, axis=0),
+            "log_likelihood": np.concatenate(all_llh, axis=0),
+            "temperatures": self.emit_ladder,
+            "acceptance": {
+                "attempted_mutate": host(state.att_mut),
+                "accepted_mutate": host(state.acc_mut),
+                "attempted_exchange": host(state.att_exc),
+                "accepted_exchange": host(state.acc_exc),
+            },
+            "evaluations": self.total_evaluations,
+            "elapsed_seconds": elapsed,
+            "evals_per_second": evals_per_sec,
+            "num_ensembles": self.num_ensembles,
+        }
+
+    def _pool_ensembles(self, arr: np.ndarray) -> np.ndarray:
+        """(S, E*L, ...) -> (S*E, L, ...): pool replica samples per
+        temperature, sample-major, as the JAX package stores them."""
+        E, L = self.num_ensembles, self._emit_L
+        S = arr.shape[0]
+        rest = arr.shape[2:]
+        return arr.reshape(S, E, L, *rest).reshape(S * E, L, *rest)
+
+    def acceptance_rates(self, state: PTState):
+        """Per-temperature (mutate, exchange) acceptance, pooled over
+        ensembles (reference: SamplerPTChain.cpp LogStatistics:383-389)."""
+        L = self.ladder_size
+
+        def per_temp(t):
+            return t.to(torch.float64).reshape(-1, L).sum(0).cpu().numpy()
+
+        att_m, acc_m = per_temp(state.att_mut), per_temp(state.acc_mut)
+        att_e, acc_e = per_temp(state.att_exc), per_temp(state.acc_exc)
+        return acc_m / np.maximum(att_m, 1.0), acc_e / np.maximum(att_e, 1.0)
+
+    def _log_statistics(self, state: PTState):
+        mut, exc = self.acceptance_rates(state)
+        logger.info("Acceptance statistics:")
+        logger.info("Temperature | Mutate (all) | Exchange (all)")
+        for c in range(self.ladder_size):
+            logger.info("%11.7f | %12.5f | %14.5f", self.ladder[c], mut[c], exc[c])

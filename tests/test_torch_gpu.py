@@ -1,0 +1,177 @@
+"""The port's CUDA kernels and CUDA path, on the card.
+
+Every test here needs a CUDA device and nvcc, and skips without them.
+This file imports neither JAX nor the JAX package, so that it runs on a
+machine that has only torch; there, skip tests/conftest.py (which sets up
+JAX for the other tests):
+
+    python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
+
+Each kernel is held to its plain PyTorch version on the same inputs:
+- B1: rtol 1e-5 in float32, 1e-12 in float64;
+- B2 (float32): the kernel is built without FMA contraction and rounds
+  like its plain version (on an H100 the two gave bit-identical results);
+  at most 0.1% of lanes may differ in `ok`, and central agrees within 1e-3
+  of each lane's peak.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bcm3_tpu_torch.ops.poppk_kernels import (
+    propagate_intervals_one_compartment,
+    propagate_intervals_plain,
+)
+from bcm3_tpu_torch.ops.transit_kernels import (
+    PARAM_NAMES,
+    transit_solve,
+    transit_solve_plain,
+)
+
+pytestmark = pytest.mark.gpu
+
+_B2_KW = dict(trips=768, rtol=1e-6, atol=100.0 * 1e-6, min_dt=1e-5, first_dt=1e-2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels are CUDA C++ built by nvcc)")
+    return torch.device("cuda")
+
+
+def _b1_inputs(B, P, K, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    ka = rng.uniform(0.05, 3.0, (B, P))
+    ke = rng.uniform(1e-4, 0.1, (B, P))
+    kel = rng.uniform(0.01, 0.5, (B, P))
+    kel[0, 1] = ka[0, 1] + ke[0, 1]  # degenerate lane: ka + ke == kel
+    dose = rng.uniform(50, 150, (P, K))
+    dose[:, 3] = 0.0  # a skipped dose
+    args = (ka, ke, kel, rng.uniform(100, 200, P), rng.uniform(12, 24, P), dose)
+    return [torch.as_tensor(a, dtype=dtype, device=device) for a in args]
+
+
+def _b2_inputs(L, device, seed=0):
+    """L lanes over 4 patients: a merged grid of 10 observations and 14
+    daily doses (one skipped), parameters spread like the prior's."""
+    rng = np.random.default_rng(seed)
+    obs = np.array([0.5, 1.0, 2.0, 4.0, 8.0, 12.0, 24.0, 96.0, 200.0, 300.0])
+    doses = 24.0 * np.arange(1, 15)
+    times = np.concatenate([obs, doses])
+    order = np.argsort(times, kind="stable")
+    pat = np.arange(L) % 4
+    amts = np.concatenate([np.zeros((4, len(obs))), np.full((4, len(doses)), 100.0)], 1)
+    amts[1, len(obs) + 4] = 0.0
+    n_transit = 10 ** rng.uniform(0.0, 1.0, L)
+    params = {
+        "ka": 10 ** rng.uniform(-1.0, 0.5, L),
+        "ke": 10 ** rng.uniform(-4.0, -1.0, L),
+        "kel": 10 ** rng.uniform(-2.0, -0.5, L),
+        "k_transit": (n_transit + 1.0) / 10 ** rng.uniform(-1.0, 1.5, L),
+        "n_transit": n_transit,
+        "dose0": np.full(L, 100.0),
+    }
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
+
+    grid = np.tile(times[order], (L, 1))
+    return {k: dev(params[k]) for k in PARAM_NAMES}, dev(grid), dev(amts[pat][:, order])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_b1_kernel_matches_plain(cuda, dtype):
+    args = _b1_inputs(B=1001, P=10, K=14, dtype=dtype, device=cuda)
+    before = propagate_intervals_one_compartment.launches
+    g, c = propagate_intervals_one_compartment(*args)
+    torch.cuda.synchronize()
+    assert propagate_intervals_one_compartment.launches == before + 1
+    assert g.shape == (14, 1001, 10) and g.dtype == dtype and g.is_cuda
+    g_ref, c_ref = propagate_intervals_plain(*args)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(g, g_ref, rtol=rtol, atol=rtol * 1e-3)
+    torch.testing.assert_close(c, c_ref, rtol=rtol, atol=rtol * 1e-3)
+
+
+def test_b2_kernel_matches_plain(cuda):
+    params, grid, amt = _b2_inputs(4000, cuda, seed=5)  # not a multiple of 128
+    before = transit_solve.launches
+    c, ok = transit_solve(params, grid, amt, **_B2_KW)
+    torch.cuda.synchronize()
+    assert transit_solve.launches == before + 1
+    c_ref, ok_ref = transit_solve_plain(params, grid, amt, **_B2_KW)
+    assert (ok != ok_ref).sum().item() <= 4
+    both = ok & ok_ref
+    assert both.sum().item() > 1000
+    assert torch.isnan(c[~ok]).all()
+    peak = c_ref[both].abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    assert ((c[both] - c_ref[both]).abs() / peak).max().item() <= 1e-3
+
+
+def test_wrappers_check_their_inputs(cuda):
+    params, grid, amt = _b2_inputs(64, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        transit_solve(params, grid.double(), amt, **_B2_KW)
+    with pytest.raises(ValueError, match="contiguous"):
+        transit_solve(params, grid.t().contiguous().t(), amt, **_B2_KW)
+    args = _b1_inputs(B=4, P=3, K=5, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        propagate_intervals_one_compartment(*args[:5], args[5][:, :2].T.contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        propagate_intervals_one_compartment(*args[:3], args[3].cpu(), *args[4:])
+
+
+@pytest.mark.parametrize("pk_type", ["one", "one_transit"])
+def test_sampler_runs_through_the_kernels(cuda, tmp_path, pk_type):
+    """A short SamplerPT run on the card launches the model's kernel and
+    emits finite samples; the card's log-likelihoods agree with the CPU's."""
+    from bcm3_tpu_torch import Prior, VariableSet
+    from bcm3_tpu_torch.likelihoods import Likelihood
+    from bcm3_tpu_torch.likelihoods.poppk import PopPKLikelihood
+    from bcm3_tpu_torch.likelihoods.poppk_synth import synthesize_trial, write_poppk_prior_xml
+    from bcm3_tpu_torch.sampler import PTConfig, SamplerPT
+
+    P = 6
+    path = str(tmp_path / "prior.xml")
+    write_poppk_prior_xml(path, P, pk_type)
+    vs = VariableSet.from_xml(path)
+    prior = Prior.from_xml(path, vs)
+    trial, _ = synthesize_trial(num_patients=P, num_timepoints=12, seed=3)
+    pk = PopPKLikelihood(vs, trial, pk_type, "lapatinib")
+    lik = Likelihood("pop_pk_trajectory", pk.log_prob_batched, model=pk)
+    counter = (
+        propagate_intervals_one_compartment if pk_type == "one" else transit_solve
+    )
+    before = counter.launches
+    cfg = PTConfig(
+        num_samples=3, use_every_nth=2, num_chains=4, num_ensembles=32,
+        adapt_proposal_samples=0, adapt_proposal_times=0, emit_fixed_only=True,
+        seed=2, device="cuda", dtype=torch.float32,
+    )
+    res = SamplerPT(prior, lik, cfg).run()
+    assert counter.launches > before
+    assert res["samples"].shape == (3 * 32, 1, vs.num_variables)
+    assert np.isfinite(res["log_prior"] + res["log_likelihood"]).all()
+
+    xs = prior.sample(torch.Generator().manual_seed(1), (64,), torch.float64)
+    cpu = lik.log_prob_batched(xs)
+    card = lik.log_prob_batched(xs.to(cuda, torch.float32)).double().cpu()
+    fin = torch.isfinite(cpu) & torch.isfinite(card)
+    assert fin.sum().item() >= 8
+    rel = (card[fin] - cpu[fin]).abs() / cpu[fin].abs()
+    # rows whose rates overflow float32 (ka = 10^(mu + sigma * ndtri(u))
+    # with a heavy-tailed sigma) are -inf on the card and may be finite in
+    # float64: compare finite sets on the others
+    params, _, _ = pk._patient_params(xs)
+    fits = torch.ones(64, dtype=torch.bool)
+    for v in params.values():
+        fits &= (v.reshape(64, -1).abs() < torch.finfo(torch.float32).max).all(dim=1)
+    flips = (torch.isfinite(cpu) != torch.isfinite(card))[fits].sum().item()
+    if pk_type == "one":  # float32 on the card against float64
+        assert flips == 0 and rel.max().item() <= 1e-3
+    else:
+        # both float32 solves, with the card's and the CPU's exp/log: a
+        # small share of lanes takes another adaptive step sequence
+        assert flips <= 3 and (rel <= 5e-3).double().mean().item() >= 0.95

@@ -1,0 +1,128 @@
+"""The port's PopPK likelihood against the JAX package on the CPU.
+
+Both packages read the same prior.xml, likelihood.xml and pkdata file.
+- `one`: port (kernel B1's plain version + closed-form observation
+  propagation) against JAX `vmap(log_prob)` (the lax.scan path), float64,
+  rtol 1e-10, including rows that must score -inf.
+- `one_transit`: port (B2's plain version, float32 solve) against the JAX
+  Pallas path (float32 solve in interpret mode): the finite sets must be
+  equal and the finite values agree to rtol 5e-3, as
+  tests/test_poppk_pallas.py:115-134 holds the JAX package's own paths.
+"""
+
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from bcm3_tpu.likelihoods import create_likelihood as jax_create_likelihood
+from bcm3_tpu.model.prior import Prior as JPrior
+from bcm3_tpu.model.variables import VariableSet as JVariableSet
+from bcm3_tpu_torch import Prior, VariableSet, create_likelihood
+from bcm3_tpu_torch.likelihoods.poppk import PopPKLikelihood
+from bcm3_tpu_torch.likelihoods.poppk_synth import (
+    synthesize_trial,
+    write_poppk_likelihood_xml,
+    write_poppk_prior_xml,
+)
+
+
+def _setup(tmp_path, pk_type, P=4, T=10, seed=7):
+    trial, _ = synthesize_trial(num_patients=P, num_timepoints=T, seed=seed)
+    pk = os.path.join(tmp_path, "pkdata.nc")
+    trial.save(pk, "TRIAL1", "lapatinib")
+    prior_xml = os.path.join(tmp_path, "prior.xml")
+    lik_xml = os.path.join(tmp_path, "likelihood.xml")
+    write_poppk_prior_xml(prior_xml, P, pk_type)
+    write_poppk_likelihood_xml(lik_xml, pk, "TRIAL1", "lapatinib", pk_type)
+    vs = VariableSet.from_xml(prior_xml)
+    port = (Prior.from_xml(prior_xml, vs), create_likelihood(lik_xml, vs))
+    jvs = JVariableSet.from_xml(prior_xml)
+    ref = (JPrior.from_xml(prior_xml, jvs), jax_create_likelihood(lik_xml, jvs))
+    return port, ref
+
+
+def _u_index(model, patient, which):
+    """Column of a patient's absorption (0) or elimination (1) uniform."""
+    return model.num_pk_params + 2 * (patient + 1) + which
+
+
+def test_log_prob_one_matches_jax(tmp_path):
+    (prior, lik), (jprior, jlik) = _setup(str(tmp_path), "one")
+    xs = np.array(jprior.sample(jax.random.PRNGKey(0), (10,)))
+    m = lik.model
+    # rows that must score -inf: an absorption uniform at 1 (ka = inf
+    # makes inf * 0 = NaN in the recurrence) and a NaN parameter
+    xs[7, _u_index(m, 2, 0)] = 1.0
+    xs[8, 1] = np.nan
+    # a row at the other edge stays finite (u = 0 gives ka = 0)
+    xs[9, _u_index(m, 1, 0)] = 0.0
+    ref = np.asarray(jax.vmap(jlik.log_prob)(xs))
+    got = lik.log_prob_batched(torch.as_tensor(xs))
+    assert got.dtype == torch.float64 and got.shape == (10,)
+    got = got.numpy()
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(ref))
+    assert np.isneginf(got[[7, 8]]).all() and np.isfinite(got[[0, 9]]).all()
+    np.testing.assert_allclose(got, ref, rtol=1e-10)
+
+
+def test_log_prob_transit_matches_jax_pallas(tmp_path, monkeypatch):
+    (prior, lik), (jprior, jlik) = _setup(str(tmp_path), "one_transit")
+    xs = np.array(jprior.sample(jax.random.PRNGKey(2), (6,)))
+    monkeypatch.setenv("BCM3_TRANSIT_PALLAS", "1")
+    ref = np.asarray(jlik.model.log_prob_batched(xs))
+    got = lik.log_prob_batched(torch.as_tensor(xs)).numpy()
+    fin = np.isfinite(ref)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    assert fin.sum() >= 2
+    np.testing.assert_allclose(got[fin], ref[fin], rtol=5e-3)
+
+
+def test_log_prob_float32_matches_float64(tmp_path):
+    """The card's working type, on the CPU: float32 scores the same rows
+    finite as float64 (including uniforms at exactly 0 and 1, where ndtri
+    is -inf/inf) and agrees to rtol 1e-4 on them."""
+    (prior, lik), _ = _setup(str(tmp_path), "one", P=4, T=24)
+    g = torch.Generator().manual_seed(3)
+    xs = prior.sample(g, (32,), torch.float64)
+    m = lik.model
+    for row, (patient, which, u) in enumerate(
+        [(0, 0, 0.0), (1, 1, 0.0), (2, 0, 1.0), (3, 1, 1.0)]
+    ):
+        xs[row, _u_index(m, patient, which)] = u
+    lp64 = lik.log_prob_batched(xs)
+    lp32 = lik.log_prob_batched(xs.float())
+    assert lp32.dtype == torch.float32
+    assert not torch.isnan(lp32).any()
+    fin = torch.isfinite(lp64)
+    assert torch.equal(torch.isfinite(lp32), fin) and fin.sum() >= 20
+    torch.testing.assert_close(lp32[fin].double(), lp64[fin], rtol=1e-4, atol=0.0)
+
+
+def test_pkdata_round_trip(tmp_path):
+    """PopPKTrial.save/load keep every field the likelihood reads."""
+    from bcm3_tpu_torch.likelihoods.poppk import PopPKTrial
+
+    trial, _ = synthesize_trial(num_patients=3, num_timepoints=8, seed=1)
+    path = os.path.join(tmp_path, "pk.nc")
+    trial.save(path, "T", "afatinib")
+    back = PopPKTrial.load(path, "T", "afatinib")
+    for name in ("time", "observed", "dose", "dosing_interval", "interruptions"):
+        np.testing.assert_array_equal(getattr(back, name), getattr(trial, name))
+
+
+@pytest.mark.parametrize("pk_type", ["two", "one_biphasic_uptake", "two_transit"])
+def test_unported_pk_types_raise(pk_type):
+    trial, _ = synthesize_trial(num_patients=2, num_timepoints=6, seed=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        PopPKLikelihood(VariableSet(), trial, pk_type, "lapatinib")
+
+
+def test_unported_likelihood_type_raises(tmp_path):
+    path = os.path.join(tmp_path, "lik.xml")
+    with open(path, "w") as f:
+        f.write('<bcm_likelihood type="banana" sd1="1" sd2="1"/>')
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        create_likelihood(path, VariableSet())
