@@ -421,7 +421,9 @@ class PopPKLikelihood:
     def _central_transit(self, p, tb, dtype):
         """Central compartment (B, P, T) in mg: kernel B2 in float32 over
         the merged stop grid, failed lanes NaN
-        (bcm3_tpu/likelihoods/poppk.py:657-696)."""
+        (bcm3_tpu/likelihoods/poppk.py:657-696). Lanes are patient-minor
+        (lane b * P + j is patient j), so B2 reads the per-patient (P, S)
+        stop tables directly."""
         B, P = p["ka"].shape
         f32 = torch.float32
 
@@ -436,12 +438,12 @@ class PopPKLikelihood:
             "kel": flat(p["kel"]),
             "k_transit": flat(p["k_transit"]),
             "n_transit": flat(p["n_transit"]),
-            "dose0": tb["tr_dose0"].repeat(B),
+            "dose0": tb["tr_dose0"],
         }
         central, ok = transit_solve(
             params,
-            tb["tr_grid"].repeat(B, 1),
-            tb["tr_amt"].repeat(B, 1),
+            tb["tr_grid"],
+            tb["tr_amt"],
             trips=self.solver_trips,
             rtol=1e-6,
             atol=float(np.min(self.trial.dose)) * 1e-6,

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 The sources in bcm3_tpu_torch/csrc/*.cu expose a plain C interface. At
-first use they are compiled with nvcc for Hopper (sm_90a) into one shared
-library under bcm3_tpu_torch/_kernels_build/, named by a hash of the
-sources and flags, and loaded with ctypes. A second process finds the
-library already built and only loads it.
+first use each is compiled with nvcc for Hopper (sm_90a), all at once in
+parallel, and the objects are linked into one shared library under
+bcm3_tpu_torch/_kernels_build/, named by a hash of the sources and flags,
+and loaded with ctypes. A second process finds the library already built
+and only loads it.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on machines that have no nvcc and no card.
@@ -31,7 +32,7 @@ BUILD_DIR = _PKG / "_kernels_build"
 # a small share of lanes took another step sequence than the plain version.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",
 )
 
@@ -48,9 +49,10 @@ _SIGNATURES = {
     "bcm3_poppk_propagate_f32": [_P] * 8 + [_I64, _I32, _I32, _P],
     "bcm3_poppk_propagate_f64": [_P] * 8 + [_I64, _I32, _I32, _P],
     # ka, ke, kel, k_transit, n_transit, dose0, grid, amt, central, ok,
-    # lanes, stops, trips, rtol, atol, min_dt, first_dt, stream
-    "bcm3_transit_dp5_f32": [_P] * 10
-    + [_I64, _I32, _I32, _F32, _F32, _F32, _F32, _P],
+    # next_lane, lane_trips, warp_slots, lanes, patients, stops, trips,
+    # rtol, atol, min_dt, first_dt, stream
+    "bcm3_transit_dp5_f32": [_P] * 13
+    + [_I32, _I32, _I32, _I32, _F32, _F32, _F32, _F32, _P],
 }
 
 _loaded: ctypes.CDLL | None = None
@@ -90,16 +92,36 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all started together
+    cmds = [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        for src, obj in zip(sources(), objs)
+    ]
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    failed = [(c, log) for c, p, log in zip(cmds, procs, logs) if p.returncode != 0]
+    if not failed:
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(proc.stdout)
+        if proc.returncode != 0:
+            failed.append((link, proc.stdout))
     last_build_seconds = time.perf_counter() - t0
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
+    out.with_suffix(".log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        cmd, log = failed[0]
+        raise RuntimeError(f"nvcc failed:\n{' '.join(cmd)}\n{log}")
     os.replace(tmp, out)
     return out
 

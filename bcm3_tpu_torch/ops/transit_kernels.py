@@ -6,6 +6,13 @@ plain PyTorch version `transit_solve_plain` for tensors on the CPU. On a
 CUDA tensor it launches the kernel or raises; it never falls back to the
 plain version. The kernel computes in float32, as the Pallas kernel does
 (transit_pallas.py:248).
+
+Both take the stop grid and dose amounts per patient, (P, S), and the
+initial doses as (P,): lane l belongs to patient l % P, the likelihood's
+patient-minor layout (the Pallas kernel takes the same tables tiled to
+(L, S)). Both end a lane as failed as soon as it has fewer trips left
+than stops to reach, which changes no output (a failed lane is all NaN),
+and both can return the number of trips each lane ran.
 """
 
 from __future__ import annotations
@@ -31,7 +38,23 @@ _SAFETY = 0.9
 _MIN_FACTOR = 0.2
 _MAX_FACTOR = 10.0
 
-PARAM_NAMES = ("ka", "ke", "kel", "k_transit", "n_transit", "dose0")
+# per-lane parameters (L,); dose0 is per patient (P,)
+LANE_PARAMS = ("ka", "ke", "kel", "k_transit", "n_transit")
+PARAM_NAMES = LANE_PARAMS + ("dose0",)
+
+# Float operations of the kernel, as counted in the note of
+# csrc/transit_dp5.cu: a trip whose first stage is reused, the first
+# stage's right-hand side, and a lane's set-up. The least work of a lane
+# that runs n >= 1 trips is SETUP + FIRST_STAGE + n * TRIP.
+OPS_PER_TRIP = 273
+OPS_FIRST_STAGE = 18
+OPS_LANE_SETUP = 10
+
+# the lane index is int32 and the lane counter overshoots L by at most the
+# card's resident threads (132 SMs x 2048 on an H100)
+_MAX_LANES = 2**31 - 2**20
+# shared memory a block may use on an H100: the (P, S) tables must fit
+_MAX_TABLE_BYTES = 232_448
 
 # the plain version checks every this many trips whether any lane is still
 # active (a host sync); finished lanes no longer change, so stopping early
@@ -39,18 +62,29 @@ PARAM_NAMES = ("ka", "ke", "kel", "k_transit", "n_transit", "dose0")
 _ACTIVE_CHECK_EVERY = 32
 
 
+def _lanes_and_patients(params, grid):
+    L, P = params["ka"].shape[0], grid.shape[0]
+    if P < 1 or L % P != 0:
+        raise ValueError(f"{L} lanes do not split evenly over {P} patients")
+    return L, P
+
+
 def transit_solve_plain(
     params, grid, dose_amt, trips=768, rtol=1e-6, atol=1e-4, min_dt=1e-5,
-    first_dt=1e-2,
+    first_dt=1e-2, trip_counts=False,
 ):
     """Plain PyTorch version: a loop over `trips` on (L,) tensors.
 
     Same semantics as the Pallas kernel body (transit_pallas.py:53-187):
-    `torch.gather` by the stop pointer in place of the one-hot gathers and
-    a masked scatter for recording. Computes in the dtype of `grid`.
-    Returns (central (L, S), ok (L,) bool)."""
-    L, S = grid.shape
-    ka, ke, kel, k_transit, n_transit, dose0 = (params[k] for k in PARAM_NAMES)
+    indexing by the lane's patient and stop pointer in place of the
+    one-hot gathers, and a masked scatter for recording. Computes in the
+    dtype of `grid`. Returns (central (L, S), ok (L,) bool), and with
+    `trip_counts` also the trips each lane ran, (L,) int32."""
+    L, P = _lanes_and_patients(params, grid)
+    S = grid.shape[1]
+    dev = grid.device
+    ka, ke, kel, k_transit, n_transit = (params[k] for k in LANE_PARAMS)
+    pat = torch.arange(L, device=dev) % P
 
     log_nfac = (
         0.9189385332046727
@@ -66,24 +100,32 @@ def transit_solve_plain(
         inflow = k_transit * transit * dose
         return inflow - (ka + ke) * gut, ka * gut - kel * cen
 
-    central = torch.full((L, S), float("nan"), dtype=grid.dtype, device=grid.device)
+    central = torch.full((L, S), float("nan"), dtype=grid.dtype, device=dev)
     central[:, 0] = 0.0
-    t = grid[:, 0].clone()
+    t = grid[pat, 0]
     gut = torch.zeros_like(t)
     cen = torch.zeros_like(t)
     lt = torch.zeros_like(t)  # last treatment: the initial dose at t = 0
-    dose = dose0.clone()
+    dose = params["dose0"][pat]
     dt = torch.full_like(t, first_dt)
-    seg = torch.ones(L, dtype=torch.long, device=grid.device)
-    ok = torch.ones(L, dtype=torch.bool, device=grid.device)
+    seg = torch.ones(L, dtype=torch.long, device=dev)
+    ok = torch.ones(L, dtype=torch.bool, device=dev)
+    counts = torch.zeros(L, dtype=torch.int32, device=dev)
 
     for trip in range(trips):
-        active = (seg < S) & ok
+        live = (seg < S) & ok
+        # a trip reaches at most one stop: a lane with fewer trips left than
+        # stops to reach cannot finish, and ends as failed now
+        doomed = live & (S - seg > trips - trip)
+        ok = ok & ~doomed
+        active = live & ~doomed
         if trip % _ACTIVE_CHECK_EVERY == 0 and not bool(active.any()):
             break
-        seg_c = torch.clamp(seg, max=S - 1)[:, None]
-        t1 = grid.gather(1, seg_c)[:, 0]
-        amt = dose_amt.gather(1, seg_c)[:, 0]
+        counts += active.int()
+        seg_c = torch.clamp(seg, max=S - 1)
+        t1 = grid[pat, seg_c]
+        amt = dose_amt[pat, seg_c]
+        seg_c = seg_c[:, None]
         remaining = torch.clamp(t1 - t, min=0.0)
         clipped = dt >= remaining
         h = torch.minimum(dt, remaining)
@@ -141,26 +183,34 @@ def transit_solve_plain(
 
     ok = ok & (seg >= S)
     central = torch.where(ok[:, None], central, float("nan"))
-    return central, ok
+    return (central, ok, counts) if trip_counts else (central, ok)
 
 
 def transit_solve(
     params, grid, dose_amt, trips=768, rtol=1e-6, atol=1e-4, min_dt=1e-5,
-    first_dt=1e-2,
+    first_dt=1e-2, trip_counts=False, warp_slots=None,
 ):
-    """Batched budgeted-DP5 transit solve over L lanes.
+    """Batched budgeted-DP5 transit solve over L lanes of P patients.
 
-    params: dict of (L,) tensors ka, ke, kel, k_transit, n_transit, dose0;
-    grid: (L, S) stop times; dose_amt: (L, S) dose amounts (0 where none).
-    Returns (central (L, S), ok (L,) bool). On CUDA every input must be
-    float32 and contiguous."""
+    params: dict of (L,) tensors ka, ke, kel, k_transit, n_transit and the
+    (P,) initial doses dose0; grid: (P, S) stop times; dose_amt: (P, S)
+    dose amounts (0 where none). Lane l is patient l % P. Returns
+    (central (L, S), ok (L,) bool), and with `trip_counts` also the trips
+    each lane ran, (L,) int32. On CUDA every input must be float32 and
+    contiguous; `warp_slots`, a (1,) int64 CUDA tensor, is then increased
+    by the trip slots the kernel's warps issued (for the warp efficiency
+    sum(trips) / (32 * slots); the plain version has no warps)."""
     if grid.device.type == "cpu":
+        if warp_slots is not None:
+            raise ValueError("warp_slots counts the CUDA kernel's warps")
         return transit_solve_plain(
-            params, grid, dose_amt, trips, rtol, atol, min_dt, first_dt
+            params, grid, dose_amt, trips, rtol, atol, min_dt, first_dt, trip_counts
         )
-    L, S = grid.shape
-    named = [(k, params[k], (L,)) for k in PARAM_NAMES]
-    named += [("grid", grid, (L, S)), ("dose_amt", dose_amt, (L, S))]
+    L, P = params["ka"].shape[0], grid.shape[0]
+    S = grid.shape[1]
+    named = [(k, params[k], (L,)) for k in LANE_PARAMS]
+    named += [("dose0", params["dose0"], (P,)), ("grid", grid, (P, S)),
+              ("dose_amt", dose_amt, (P, S))]
     for name, x, shape in named:
         if x.device != grid.device or x.device.type != "cuda":
             raise ValueError(f"{name} must be on {grid.device} (CUDA), got {x.device}")
@@ -170,19 +220,36 @@ def transit_solve(
             raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    _lanes_and_patients(params, grid)
+    if L > _MAX_LANES:
+        raise ValueError(f"{L} lanes: the kernel takes at most {_MAX_LANES}")
+    if (2 * P * S + P) * 4 > _MAX_TABLE_BYTES:
+        raise ValueError(f"(P, S) = ({P}, {S}) tables exceed a block's shared memory")
+    if warp_slots is not None and (
+        warp_slots.device != grid.device or warp_slots.dtype != torch.int64
+        or tuple(warp_slots.shape) != (1,)
+    ):
+        raise ValueError(f"warp_slots must be a (1,) int64 tensor on {grid.device}")
     central = torch.empty((L, S), dtype=torch.float32, device=grid.device)
     ok = torch.empty((L,), dtype=torch.bool, device=grid.device)
+    # the kernel's lane counter: the next lane a thread takes
+    next_lane = torch.zeros((1,), dtype=torch.int32, device=grid.device)
+    counts = (
+        torch.empty((L,), dtype=torch.int32, device=grid.device) if trip_counts else None
+    )
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = build.library().bcm3_transit_dp5_f32(
             *(x.data_ptr() for _, x, _ in named),
-            central.data_ptr(), ok.data_ptr(),
-            L, S, int(trips), float(rtol), float(atol), float(min_dt),
+            central.data_ptr(), ok.data_ptr(), next_lane.data_ptr(),
+            None if counts is None else counts.data_ptr(),
+            None if warp_slots is None else warp_slots.data_ptr(),
+            L, P, S, int(trips), float(rtol), float(atol), float(min_dt),
             float(first_dt), stream,
         )
     build.check_launch("transit_dp5", code)
     transit_solve.launches += 1
-    return central, ok
+    return (central, ok, counts) if trip_counts else (central, ok)
 
 
 # kernel launches since the count was last set to 0

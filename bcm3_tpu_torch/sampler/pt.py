@@ -81,7 +81,7 @@ class PTConfig:
     emit_fixed_only: bool = False
     # dtype of the emitted copies (None = the sampler dtype)
     emit_dtype: Optional[torch.dtype] = None
-    device: str = "cpu"
+    device: str = "cuda"
     dtype: torch.dtype = torch.float64
     # JAX-package options that the port refuses until they are ported
     checkpoint_file: str = ""

@@ -11,7 +11,10 @@ Phases, each printing its lines before the last:
 2. build: both CUDA kernels compiled by nvcc from bcm3_tpu_torch/csrc;
 3. each kernel against its plain PyTorch version at the slice's shapes, on
    inputs made by the slice's own likelihood from prior draws, with
-   CUDA-event timings of both;
+   CUDA-event timings of both and each kernel's bound (the least time the
+   card could take for the same work); for B2 also the per-lane trip
+   counts of kernel and plain version (asserted equal), their
+   distribution, the warp efficiency and the trips the early exit saves;
 4. the slice, `one`: SamplerPT, 8 chains x 8192 ensembles, PopPK
    one-compartment over the bench trial (16 patients x 24 timepoints);
 5. the slice, `one_transit`: 8 chains x 4096 ensembles;
@@ -40,6 +43,18 @@ ENSEMBLES = {"one": 8192, "one_transit": 4096}
 NUM_SAMPLES = {"one": 20, "one_transit": 4}
 USE_EVERY_NTH = 5
 ORACLE_DRAWS = 256
+
+# published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
+# the tensor cores, and HBM3 bandwidth
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def bound_ms(ops, nbytes):
+    """The least time for the work: operations at the float32 peak or bytes
+    at the memory rate, whichever is longer; and which of the two it is."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
 def log(msg):
@@ -119,6 +134,54 @@ def phase_build():
             log(f"  ptxas: {line.strip()}")
 
 
+def b2_inputs(models, gen):
+    """B2's inputs as the `one_transit` likelihood makes them from prior
+    draws: L = 4096 x 8 chains x 16 patients = 524,288 lanes, S = 38 stops,
+    per-patient (P, S) tables."""
+    import torch
+
+    from bcm3_tpu_torch.ops.transit_kernels import LANE_PARAMS
+
+    f32 = torch.float32
+    prior, lik = models["one_transit"]
+    pk = lik.model
+    xs = prior.sample(gen, (ENSEMBLES["one_transit"] * NUM_CHAINS,), f32)
+    tb = pk._tables(xs.device, f32)
+    p, _, _ = pk._patient_params(xs)
+    B, P = p["ka"].shape
+
+    def flat(x):
+        return (x if x.dim() == 2 else x[:, None]).expand(B, P).reshape(-1).contiguous()
+
+    params = {k: flat(p[k]) for k in LANE_PARAMS}
+    params["dose0"] = tb["tr_dose0"]
+    kw = dict(
+        trips=pk.solver_trips, rtol=1e-6, atol=float(pk.trial.dose.min()) * 1e-6,
+        min_dt=1e-5,
+    )
+    return params, tb["tr_grid"], tb["tr_amt"], kw
+
+
+def b2_trip_statistics(n, n_no_exit, slots, trips):
+    """What the trip counts say: n, the trips each lane ran; n_no_exit, the
+    trips it would run at this budget without the early exit; slots, the
+    trip slots the kernel's warps issued."""
+    total = int(n.sum())
+    groups = n_no_exit.reshape(-1, 32).amax(dim=1).sum().item()  # L % 32 == 0
+    nf = n.double()
+    return {
+        "mean_trips": nf.mean().item(),
+        "median_trips": nf.median().item(),
+        "share_at_budget_without_early_exit": (n_no_exit == trips).double().mean().item(),
+        "trips_saved_by_early_exit": 1.0 - total / int(n_no_exit.sum()),
+        # sum of lane trips over 32 x the slots the warps issued, under the
+        # lane-refilling schedule; and the same over static warps of 32
+        # consecutive lanes without the early exit (the earlier schedule)
+        "warp_efficiency": total / (32 * slots),
+        "warp_efficiency_static": int(n_no_exit.sum()) / (32 * groups),
+    }
+
+
 def phase_kernels(models, gen):
     """Each kernel against its plain version on the card, at the shapes and
     on the inputs the slice gives it."""
@@ -129,6 +192,9 @@ def phase_kernels(models, gen):
         propagate_intervals_plain as b1_plain,
     )
     from bcm3_tpu_torch.ops.transit_kernels import (
+        OPS_FIRST_STAGE,
+        OPS_LANE_SETUP,
+        OPS_PER_TRIP,
         transit_solve as b2,
         transit_solve_plain as b2_plain,
     )
@@ -161,54 +227,73 @@ def phase_kernels(models, gen):
     assert max_rel <= 1e-5, f"B1 disagrees with its plain version: max rel {max_rel}"
     ms = cuda_ms(lambda: b1(*args), 50)
     plain_ms = cuda_ms(lambda: b1_plain(*args), 50)
-    log(f"B1 poppk_propagate B={B} P={P} K={pk.K}: max abs err {err:.3e}, "
-        f"max rel err {max_rel:.3e} (limit 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    results["poppk_propagate"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-
-    # B2: L = 4096 x 8 chains x 16 patients = 524,288 lanes, S = 38 stops
-    prior, lik = models["one_transit"]
-    pk = lik.model
-    xs = prior.sample(gen, (ENSEMBLES["one_transit"] * NUM_CHAINS,), f32)
-    tb = pk._tables(xs.device, f32)
-    p, _, _ = pk._patient_params(xs)
-    B, P = p["ka"].shape
-
-    def flat(x):
-        return (x if x.dim() == 2 else x[:, None]).expand(B, P).reshape(-1).contiguous()
-
-    params = {k: flat(p[k]) for k in ("ka", "ke", "kel", "k_transit", "n_transit")}
-    params["dose0"] = tb["tr_dose0"].repeat(B)
-    grid, amt = tb["tr_grid"].repeat(B, 1), tb["tr_amt"].repeat(B, 1)
-    kw = dict(
-        trips=pk.solver_trips, rtol=1e-6, atol=float(pk.trial.dose.min()) * 1e-6,
-        min_dt=1e-5,
+    # each input read once, each output written once; per lane 12 float
+    # operations of set-up and 5 per interval (csrc/poppk_propagate.cu)
+    K = pk.K
+    b1_bytes = sum(x.numel() * x.element_size() for x in args) + (g.numel() + c.numel()) * 4
+    b1_bound, b1_by = bound_ms(B * P * (12 + 5 * K), b1_bytes)
+    log(f"B1 poppk_propagate B={B} P={P} K={K}: max abs err {err:.3e}, "
+        f"max rel err {max_rel:.3e} (limit 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+        f"bound {b1_bound:.4f} ms by {b1_by} ({b1_bytes} bytes), "
+        f"roofline share {b1_bound / ms:.3f}")
+    results["poppk_propagate"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b1_bound, bound_by=b1_by
     )
-    c, ok = b2(params, grid, amt, **kw)
-    cp, okp = b2_plain(params, grid, amt, **kw)
+
+    # B2: 524,288 lanes, S = 38 stops, on per-patient tables
+    params, grid, amt, kw = b2_inputs(models, gen)
+    trips = kw["trips"]
+    slots = torch.zeros(1, dtype=torch.int64, device="cuda")
+    c, ok, n = b2(params, grid, amt, trip_counts=True, warp_slots=slots, **kw)
+    cp, okp, n_p = b2_plain(params, grid, amt, trip_counts=True, **kw)
     torch.cuda.synchronize()
-    L, S = grid.shape
+    L, S = c.shape
+    P = grid.shape[0]
     mismatched = int((ok != okp).sum())
+    trip_mismatches = int((n != n_p).sum())
     both = ok & okp
     n_ok = int(both.sum())
     assert n_ok > L // 10, f"B2: only {n_ok} of {L} lanes finished"
     diff = (c[both] - cp[both]).abs()
     err = diff.max().item()
-    # Built without FMA contraction, the kernel rounds like its plain
-    # version. Limits: ok differs on <= 0.01% of lanes, and central within
-    # 1e-3 of each lane's peak (the float32 step sequence is sensitive to
-    # last-bit differences in exp/log).
+    # Built without FMA contraction and with the accurate exp/log/pow, the
+    # kernel rounds like its plain version and takes the same step
+    # sequence: the trip counts must be equal on every lane. Limits on the
+    # outputs: ok differs on <= 0.01% of lanes, and central within 1e-3 of
+    # each lane's peak.
     peak = cp[both].abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
     worst = (diff / peak).max().item()
+    assert trip_mismatches == 0, f"B2: {trip_mismatches} lanes ran another number of trips"
     assert mismatched <= L // 10000, f"B2: {mismatched} lanes differ in ok"
     assert worst <= 1e-3, f"B2 disagrees with its plain version: {worst}"
+
+    # The same lanes with S more trips of budget: there the early exit
+    # fires only past `trips`, so min(count, trips) is what each lane runs
+    # at this budget without the early exit.
+    _, _, n_long = b2(params, grid, amt, trip_counts=True, **dict(kw, trips=trips + S))
+    n_no_exit = n_long.clamp(max=trips)
+    stats = b2_trip_statistics(n, n_no_exit, int(slots), trips)
+    stats["share_failed"] = 1.0 - int(ok.sum()) / L
+    # least work for these inputs: every trip after a lane's first reuses
+    # its first stage (csrc/transit_dp5.cu, the note); each input read once
+    # and each output written once
+    ops = L * OPS_LANE_SETUP + int((n > 0).sum()) * OPS_FIRST_STAGE + int(n.sum()) * OPS_PER_TRIP
+    b2_bytes = (len(params) - 1) * L * 4 + (2 * P * S + P) * 4 + L * S * 4 + L
+    b2_bound, b2_by = bound_ms(ops, b2_bytes)
+
     ms = cuda_ms(lambda: b2(params, grid, amt, **kw), 5)
     plain_ms = cuda_ms(lambda: b2_plain(params, grid, amt, **kw), 2)
-    log(f"B2 transit_dp5 L={L} S={S} trips={kw['trips']}: ok {int(ok.sum())}/{L}, "
-        f"ok mismatches {mismatched} (limit {L // 10000}), max abs err {err:.3e}, "
+    log(f"B2 transit_dp5 L={L} S={S} trips={trips}: ok {int(ok.sum())}/{L}, "
+        f"ok mismatches {mismatched} (limit {L // 10000}), trip-count mismatches "
+        f"{trip_mismatches} (limit 0), max abs err {err:.3e}, "
         f"worst err / lane peak {worst:.3e} (limit 1e-3); kernel {ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms")
+    log("B2 trips: " + json.dumps(stats))
+    log(f"B2 bound: {ops:.4e} float operations, {b2_bytes} bytes -> {b2_bound:.4f} ms "
+        f"by {b2_by}; roofline share {b2_bound / ms:.4f}")
     results["transit_dp5"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, ok_mismatches=mismatched
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, ok_mismatches=mismatched,
+        bound_ms=b2_bound, bound_by=b2_by,
     )
     return results
 
@@ -355,6 +440,10 @@ def main(workdir):
             "max_abs_err": kernels[name]["max_abs_err"],
             "ms": kernels[name]["ms"],
             "plain_ms": kernels[name]["plain_ms"],
+            "bound_ms": kernels[name]["bound_ms"],
+            "bound_by": kernels[name]["bound_by"],
+            # no single PyTorch call computes either function
+            "library_ms": None,
         }
         for name in ("poppk_propagate", "transit_dp5")
     ]}))

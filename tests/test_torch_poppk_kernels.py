@@ -19,6 +19,7 @@ Tolerances:
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from bcm3_tpu.ops.poppk_pallas import (
@@ -69,7 +70,8 @@ def test_b1_plain_any_patient_count():
 
 def _b2_problem(L=24, seed=0):
     """Lanes drawn like the one_transit likelihood's: 4 patients with a
-    merged grid of 10 observations and 14 daily doses, one skipped."""
+    merged grid of 10 observations and 14 daily doses, one skipped. The
+    stop tables are per patient, (P, S), and lane l is patient l % P."""
     rng = np.random.default_rng(seed)
     P = 4
     obs = np.array([0.5, 1.0, 2.0, 4.0, 8.0, 12.0, 24.0, 96.0, 200.0, 300.0])
@@ -83,7 +85,6 @@ def _b2_problem(L=24, seed=0):
         order = np.argsort(times, kind="stable")
         grid_p.append(times[order])
         amt_p.append(amts[order])
-    pat = np.arange(L) % P
     n_transit = 10 ** rng.uniform(0.0, 1.0, L)
     params = {
         "ka": 10 ** rng.uniform(-1.0, 0.5, L),
@@ -91,11 +92,24 @@ def _b2_problem(L=24, seed=0):
         "kel": 10 ** rng.uniform(-2.0, -0.5, L),
         "k_transit": (n_transit + 1.0) / 10 ** rng.uniform(-1.0, 1.5, L),
         "n_transit": n_transit,
-        "dose0": (100.0 + 50 * pat).astype(float),
+        "dose0": 100.0 + 50.0 * np.arange(P),
     }
-    grid = np.stack(grid_p)[pat]
-    amt = np.stack(amt_p)[pat]
-    return params, grid, amt
+    return params, np.stack(grid_p), np.stack(amt_p)
+
+
+def _per_lane(params, grid, amt):
+    """The same problem with its tables tiled to (L, S), as the Pallas
+    kernel takes them: one patient per lane."""
+    L, P = len(params["ka"]), len(grid)
+    pat = np.arange(L) % P
+    return dict(params, dose0=params["dose0"][pat]), grid[pat], amt[pat]
+
+
+def _t(params, grid, amt, dtype=torch.float32):
+    return (
+        {k: torch.as_tensor(v, dtype=dtype) for k, v in params.items()},
+        torch.as_tensor(grid, dtype=dtype), torch.as_tensor(amt, dtype=dtype),
+    )
 
 
 _B2_KW = dict(trips=768, rtol=1e-6, atol=100.0 * 1e-6, min_dt=1e-5, first_dt=1e-2)
@@ -103,17 +117,15 @@ _B2_KW = dict(trips=768, rtol=1e-6, atol=100.0 * 1e-6, min_dt=1e-5, first_dt=1e-
 
 def test_b2_plain_matches_jax_kernel():
     params, grid, amt = _b2_problem()
+    lane_params, lane_grid, lane_amt = _per_lane(params, grid, amt)
     c_ref, ok_ref = jax_b2(
-        {k: jnp.asarray(v) for k, v in params.items()},
-        jnp.asarray(grid), jnp.asarray(amt), **_B2_KW,
+        {k: jnp.asarray(v) for k, v in lane_params.items()},
+        jnp.asarray(lane_grid), jnp.asarray(lane_amt), **_B2_KW,
     )
     c_ref, ok_ref = np.asarray(c_ref), np.asarray(ok_ref)
     f32 = torch.float32
-    c, ok = transit_solve(
-        {k: torch.as_tensor(v, dtype=f32) for k, v in params.items()},
-        torch.as_tensor(grid, dtype=f32), torch.as_tensor(amt, dtype=f32), **_B2_KW,
-    )
-    assert c.dtype == f32 and c.shape == grid.shape and ok.dtype == torch.bool
+    c, ok = transit_solve(*_t(params, grid, amt), **_B2_KW)
+    assert c.dtype == f32 and c.shape == lane_grid.shape and ok.dtype == torch.bool
     ok = ok.numpy()
     np.testing.assert_array_equal(ok, ok_ref)
     assert ok.sum() >= 6 and (~ok).sum() >= 1  # both outcomes are exercised
@@ -123,16 +135,56 @@ def test_b2_plain_matches_jax_kernel():
     np.testing.assert_allclose(c[ok], c_ref[ok], rtol=3e-4, atol=3 * _B2_KW["atol"])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_b2_plain_patient_tables_match_lane_tables(dtype):
+    """(P, S) tables read by lane % P give bit for bit what the same call
+    gives on the tables tiled to (L, S), one patient per lane."""
+    problem = _b2_problem(L=24, seed=4)
+    c, ok, n = transit_solve_plain(*_t(*problem, dtype), trip_counts=True, **_B2_KW)
+    c_l, ok_l, n_l = transit_solve_plain(
+        *_t(*_per_lane(*problem), dtype), trip_counts=True, **_B2_KW
+    )
+    assert ok.any() and (~ok).any()
+    assert torch.equal(ok, ok_l) and torch.equal(n, n_l)
+    assert torch.equal(c.isnan(), c_l.isnan())
+    assert torch.equal(torch.nan_to_num(c), torch.nan_to_num(c_l))
+
+
+def test_b2_plain_trip_counts():
+    """Trip counts: at most the budget; at least S - 1 on lanes that finish
+    (a trip reaches at most one stop). Lanes that fail for the budget (they
+    finish under a larger one) are ended by the early exit within S - 2
+    trips of the budget, and the larger budget shows they needed more."""
+    params, grid, amt = _b2_problem(L=48, seed=6)
+    S = grid.shape[1]
+    kw = dict(_B2_KW, trips=450)
+    c, ok, n = transit_solve_plain(*_t(params, grid, amt), trip_counts=True, **kw)
+    c_big, ok_big, n_big = transit_solve_plain(
+        *_t(params, grid, amt), trip_counts=True, **dict(kw, trips=1000)
+    )
+    assert n.dtype == torch.int32 and n.shape == ok.shape
+    assert (n <= kw["trips"]).all() and (n[ok] >= S - 1).all()
+    budget_failed = ok_big & ~ok
+    assert budget_failed.sum() >= 3 and ok.sum() >= 3
+    assert (n[budget_failed] >= kw["trips"] - (S - 2)).all()
+    assert (n_big[budget_failed] > kw["trips"]).all()
+    # the budget changes no step: lanes that finish under both agree
+    assert torch.equal(n[ok], n_big[ok]) and torch.equal(c[ok], c_big[ok])
+
+
+def test_b2_lanes_must_split_over_patients():
+    params, grid, amt = _t(*_b2_problem(L=6))  # 6 lanes, 4 patients
+    with pytest.raises(ValueError, match="split evenly"):
+        transit_solve(params, grid, amt, **_B2_KW)
+
+
 def test_b2_plain_dtype_follows_input():
     """The plain version computes in its input's dtype; float64 agrees with
     float32 to the solver's tolerance on the lanes both finish."""
-    params, grid, amt = _b2_problem(L=8, seed=2)
+    problem = _b2_problem(L=8, seed=2)
     out = {}
     for dt in (torch.float32, torch.float64):
-        out[dt] = transit_solve_plain(
-            {k: torch.as_tensor(v, dtype=dt) for k, v in params.items()},
-            torch.as_tensor(grid, dtype=dt), torch.as_tensor(amt, dtype=dt), **_B2_KW,
-        )
+        out[dt] = transit_solve_plain(*_t(*problem, dt), **_B2_KW)
     assert out[torch.float64][0].dtype == torch.float64
     both = (out[torch.float32][1] & out[torch.float64][1]).numpy()
     assert both.any()

@@ -245,5 +245,12 @@ def test_unported_options_raise(poppk_files, override, item):
         SamplerPT(
             Prior.from_xml(prior_xml, vs),
             create_likelihood(os.path.join(poppk_files, "likelihood.xml"), vs),
-            PTConfig(**cfg),
+            PTConfig(**cfg, device="cpu", dtype=torch.float64),
         )
+
+
+def test_config_runs_on_the_card_unless_asked():
+    """The sampler's entry point runs on the card by default; the CPU is
+    an explicit choice (as every CPU test here makes it)."""
+    assert PTConfig().device == "cuda"
+    assert PTConfig(device="cpu").device == "cpu"
