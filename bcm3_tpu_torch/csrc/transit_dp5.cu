@@ -263,8 +263,10 @@ __global__ void __launch_bounds__(kThreads) transit_dp5_kernel(
       continue;
     }
 
-    const unsigned running = __activemask();
-    if ((running & (~running + 1u)) == my_bit) ++slots;
+    if (warp_slots != nullptr) {  // the same branch for every thread
+      const unsigned running = __activemask();
+      if ((running & (~running + 1u)) == my_bit) ++slots;
+    }
 
     const float remaining = nan_max(t1 - t, 0.0f);
     const bool clipped = dt >= remaining;
@@ -367,21 +369,28 @@ extern "C" int bcm3_transit_dp5_f32(
     void* lane_trips, void* warp_slots, int L, int P, int S, int trips,
     float rtol, float atol, float min_dt, float first_dt, void* stream) {
   if (L <= 0) return static_cast<int>(cudaGetLastError());
+  // the card decides whether the (P, S) tables fit a block's shared memory
   const size_t smem = (2 * static_cast<size_t>(P) * S + P) * sizeof(float);
   cudaError_t err = cudaSuccess;
+  // a failed runtime call also sets the last error: clear it, so that it
+  // is reported once, here, and not again by the next launch
+  auto fail = [](cudaError_t e) {
+    cudaGetLastError();
+    return static_cast<int>(e);
+  };
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(transit_dp5_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return fail(err);
   }
   int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return fail(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return fail(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, transit_dp5_kernel,
                                                       kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return fail(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   // every block that fits at once, and no more than the lanes need
   const long long needed = (static_cast<long long>(L) + kThreads - 1) / kThreads;

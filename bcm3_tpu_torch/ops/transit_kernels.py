@@ -53,8 +53,6 @@ OPS_LANE_SETUP = 10
 # the lane index is int32 and the lane counter overshoots L by at most the
 # card's resident threads (132 SMs x 2048 on an H100)
 _MAX_LANES = 2**31 - 2**20
-# shared memory a block may use on an H100: the (P, S) tables must fit
-_MAX_TABLE_BYTES = 232_448
 
 # the plain version checks every this many trips whether any lane is still
 # active (a host sync); finished lanes no longer change, so stopping early
@@ -223,8 +221,6 @@ def transit_solve(
     _lanes_and_patients(params, grid)
     if L > _MAX_LANES:
         raise ValueError(f"{L} lanes: the kernel takes at most {_MAX_LANES}")
-    if (2 * P * S + P) * 4 > _MAX_TABLE_BYTES:
-        raise ValueError(f"(P, S) = ({P}, {S}) tables exceed a block's shared memory")
     if warp_slots is not None and (
         warp_slots.device != grid.device or warp_slots.dtype != torch.int64
         or tuple(warp_slots.shape) != (1,)

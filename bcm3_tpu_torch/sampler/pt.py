@@ -557,7 +557,9 @@ class SamplerPT:
         """Run the sampler (reference: SamplerPT.cpp RunImpl:185-260).
 
         Returns a dict with samples (S*E, L_emit, D), log_prior and
-        log_likelihood (S*E, L_emit), temperatures and acceptance counts."""
+        log_likelihood (S*E, L_emit), temperatures and acceptance counts;
+        elapsed_seconds is the whole call's wall, sampling_seconds that of
+        the iterations alone (without the start-position search)."""
         cfg = self.config
         t_start = time.perf_counter()
         state = self._init_state()
@@ -571,19 +573,24 @@ class SamplerPT:
 
         all_x, all_lprior, all_llh = [], [], []
         emitted = 0
-        while emitted < cfg.num_samples:
-            m = min(chunk, cfg.num_samples - emitted)
-            state, proposals, (xs, lps, lls) = self._run_segment(state, proposals, m)
-            xs, lps, lls = (self._pool_ensembles(a) for a in (xs, lps, lls))
-            all_x.append(xs)
-            all_lprior.append(lps)
-            all_llh.append(lls)
-            for handler in self.sample_handlers:
-                handler.receive_samples(xs, lps, lls, self.emit_ladder)
-            emitted += m
+        # the iterations without the start-position search; each segment
+        # ends with a copy to the host, so its device work is done in here
+        t_sampling = time.perf_counter()
+        with torch.profiler.record_function("SamplerPT.sampling"):
+            while emitted < cfg.num_samples:
+                m = min(chunk, cfg.num_samples - emitted)
+                state, proposals, (xs, lps, lls) = self._run_segment(state, proposals, m)
+                xs, lps, lls = (self._pool_ensembles(a) for a in (xs, lps, lls))
+                all_x.append(xs)
+                all_lprior.append(lps)
+                all_llh.append(lls)
+                for handler in self.sample_handlers:
+                    handler.receive_samples(xs, lps, lls, self.emit_ladder)
+                emitted += m
         self.proposals = proposals
         self.state = state
 
+        sampling = time.perf_counter() - t_sampling
         elapsed = time.perf_counter() - t_start
         # att_mut is int32 per chain; the population total needs int64
         self.total_evaluations = int(state.att_mut.sum(dtype=torch.int64))
@@ -612,6 +619,7 @@ class SamplerPT:
             },
             "evaluations": self.total_evaluations,
             "elapsed_seconds": elapsed,
+            "sampling_seconds": sampling,
             "evals_per_second": evals_per_sec,
             "num_ensembles": self.num_ensembles,
         }

@@ -18,6 +18,10 @@ Phases, each printing its lines before the last:
 4. the slice, `one`: SamplerPT, 8 chains x 8192 ensembles, PopPK
    one-compartment over the bench trial (16 patients x 24 timepoints);
 5. the slice, `one_transit`: 8 chains x 4096 ensembles;
+   each slice runs once cold (its outputs checked), then twice more warm:
+   the wall per iteration of the iterations alone, and under
+   torch.profiler the device's busy time per iteration and its largest
+   kernels;
 6. the port on the card (float32, kernels) against the port on the CPU
    (float64 tables, plain versions) for 256 prior draws of each model.
 
@@ -334,7 +338,52 @@ def phase_slice(pk_type, models):
         f"in {res['elapsed_seconds']:.3f} s = {res['evals_per_second']:.1f} evals/s; "
         f"mutate acceptance by temperature {np.round(mut, 4).tolist()}, "
         f"exchange {np.round(exc, 4).tolist()}")
+
+    # steady state: the same sampler runs again (kernels built, allocations
+    # cached), once for the wall of its iterations and once under the profiler
+    iterations = cfg.num_samples * cfg.use_every_nth
+    warm = sampler.run()
+    wall_ms = warm["sampling_seconds"] * 1e3 / iterations
+    busy_ms, top = profile_sampling(sampler, iterations)
+    idle = "not measured" if busy_ms is None else f"{1.0 - busy_ms / wall_ms:.4f}"
+    log(f"slice {pk_type} steady state: {iterations} iterations, wall "
+        f"{wall_ms:.4f} ms per iteration = {E * NUM_CHAINS / wall_ms * 1e3:.1f} evals/s; "
+        f"device busy {busy_ms if busy_ms is not None else 'not measured'} ms per "
+        f"iteration (under the profiler), idle share {idle}")
+    for name, ms in top:
+        log(f"  device ms per iteration {ms:.4f}  {name[:120]}")
     return res
+
+
+def profile_sampling(sampler, iterations):
+    """One run() under torch.profiler. Returns the device's busy time per
+    iteration (kernels, copies and sets that ran within the sampler's
+    "SamplerPT.sampling" span, so without the start-position search; one
+    stream, so they do not overlap) and the 8 largest entries of it by
+    kernel; (None, []) where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # run() ends with copies to the host, so its device work is done
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sampler.run()
+    events = prof.events()
+    spans = [e for e in events
+             if e.name == "SamplerPT.sampling" and e.device_type == DeviceType.CPU]
+    if len(spans) != 1:
+        return None, []
+    start, end = spans[0].time_range.start, spans[0].time_range.end
+    by_kernel = {}
+    for e in events:
+        # the span's own device-side record is a range, not work
+        if e.device_type != DeviceType.CUDA or e.name == "SamplerPT.sampling":
+            continue
+        if start <= e.time_range.start <= end:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_kernel.values()) / 1e3 / iterations
+    top = sorted(((k, v / 1e3 / iterations) for k, v in by_kernel.items()),
+                 key=lambda kv: -kv[1])[:8]
+    return (busy, top) if busy > 0 else (None, [])
 
 
 def phase_oracle(pk_type, workdir):

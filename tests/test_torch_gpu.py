@@ -165,6 +165,12 @@ def test_wrappers_check_their_inputs(cuda):
         transit_solve(odd, grid, amt, **_B2_KW)
     with pytest.raises(ValueError, match="warp_slots"):
         transit_solve(params, grid, amt, warp_slots=torch.zeros(1, device=cuda), **_B2_KW)
+    # (P, S) tables beyond a block's shared memory: the launcher refuses
+    # them, and the next launch is unaffected
+    wide = torch.zeros((grid.shape[0], 40_000), dtype=torch.float32, device=cuda)
+    with pytest.raises(RuntimeError, match="transit_dp5"):
+        transit_solve(params, wide, wide, **_B2_KW)
+    _b2_against_plain(params, grid, amt, **_B2_KW)
     args = _b1_inputs(B=4, P=3, K=5, dtype=torch.float32, device=cuda)
     with pytest.raises(ValueError, match="shape"):
         propagate_intervals_one_compartment(*args[:5], args[5][:, :2].T.contiguous())
