@@ -11,9 +11,9 @@ Dirichlet blocks (reference: src/sampler/MultivariateMarginal.h:26-31) are
 contiguous index ranges whose last variable is the residual
 1 - sum(others) (reference: src/sampler/Sampler.h:38-42).
 
-`sample` draws from an explicit `torch.Generator`. The families that need a
-gamma sampler (gamma, beta, beta_prime, Dirichlet) cannot be sampled yet
-(ROADMAP); their log-densities are complete.
+`sample` draws from an explicit `torch.Generator`; the gamma, beta,
+beta_prime and Dirichlet families take their draws from the port's gamma
+sampler (`univariate.sample_standard_gamma`), which takes one.
 """
 
 from __future__ import annotations
@@ -50,10 +50,6 @@ _FAMILY_NAMES = {
     "beta_prime": BETA_PRIME,
     "exponential_mix": EXPONENTIAL_MIX,
 }
-
-# families whose draws need a gamma sampler that takes a generator
-_UNSAMPLED = {GAMMA: "gamma", BETA: "beta", BETA_PRIME: "beta_prime"}
-
 
 @dataclass
 class DirichletBlock:
@@ -302,16 +298,10 @@ class Prior:
     def sample(
         self, generator: torch.Generator, shape=(), dtype=torch.float64
     ) -> torch.Tensor:
-        """Draw from the prior on the generator's device: (*shape, D)."""
+        """Draw from the prior on the generator's device: (*shape, D).
+        A family's random numbers are drawn only where the prior has it,
+        so adding a family does not change the others' draws."""
         present = set(np.unique(self.dist_type).tolist())
-        missing = [_UNSAMPLED[c] for c in present if c in _UNSAMPLED]
-        if self.dirichlet_blocks:
-            missing.append("dirichlet")
-        if missing:
-            raise NotImplementedError(
-                f"sampling {sorted(missing)} priors needs a generator-driven "
-                "gamma sampler, not ported yet (ROADMAP A2)"
-            )
         device = generator.device
         full = (*shape, self.num_variables)
         t, a, b, c = self._params(device, dtype)
@@ -339,6 +329,23 @@ class Prior:
                 uv.quantile_exponential(u2, torch.clamp(lam, min=tiny)),
                 out,
             )
+
+        def gamma(shape_param):
+            return uv.sample_standard_gamma(shape_param.expand(full), generator)
+
+        if GAMMA in present:
+            out = torch.where(t == GAMMA, gamma(torch.where(t == GAMMA, a, 1.0)) * b, out)
+        if BETA in present or BETA_PRIME in present:
+            # Beta(a, b) = Ga / (Ga + Gb); Beta'(a, b) * scale = scale * Ga / Gb
+            member = (t == BETA) | (t == BETA_PRIME)
+            ga = gamma(torch.where(member, a, 1.0))
+            gb = gamma(torch.where(member, b, 1.0))
+            out = torch.where(t == BETA, ga / (ga + gb), out)
+            out = torch.where(t == BETA_PRIME, c * ga / gb, out)
+        for blk in self.dirichlet_blocks:
+            alphas = torch.as_tensor(blk.alphas, dtype=dtype, device=device)
+            gs = uv.sample_standard_gamma(alphas.expand(*shape, blk.size), generator)
+            out[..., blk.start : blk.start + blk.size] = gs / gs.sum(dim=-1, keepdim=True)
         return out
 
     # ------------------------------------------------------------------

@@ -26,8 +26,10 @@ Semantics as in the reference:
 - reflect-on-bounds for bounded priors (Proposal.cpp:385-397)
 - dimension-dependent target acceptance rates 0.44/0.35/0.30/0.234
   (Proposal.cpp:47-55)
-The t-distributed proposal (proposal_t_dof > 0) needs a gamma sampler and
-is not ported yet (ROADMAP A6).
+- the t-distributed proposal's Gamma(nu/2, scale=nu/2) mixing variable
+  (ProposalGlobalCovariance.cpp:17-23 with RNG::GetGamma's shape/scale
+  convention, src/utils/RNG.cpp:84-110), with the MH ratio kept Gaussian,
+  as the JAX package has both
 """
 
 from __future__ import annotations
@@ -169,19 +171,17 @@ def _ensemble_log_resp(prop: BlockProposal, x_el):
     return lp - torch.logsumexp(lp, dim=-1, keepdim=True)
 
 
-def propose_ensemble(prop: BlockProposal, x_el, lower, upper, gumbel_el, z_el):
+def propose_ensemble(
+    prop: BlockProposal, x_el, lower, upper, gumbel_el, z_el, gamma_el=None
+):
     """New block positions for every (ensemble, ladder) lane.
 
     x_el: (E, L, d); gumbel_el: (E, L, K) standard Gumbel noise for the
-    component pick; z_el: (E, L, d) standard normals. Returns
+    component pick; z_el: (E, L, d) standard normals; gamma_el: (E, L)
+    Gamma(nu/2, 1) draws, needed when prop.t_dof = nu > 0. Returns
     (new_block (E, L, d), selected (E, L) int64, log_resp (E, L, K)); the
     forward responsibilities are returned so `mh_log_ratio_ensemble` can
     reuse them (reference: ProposalGaussianMixture.cpp:20-42)."""
-    if prop.t_dof > 0.0:
-        raise NotImplementedError(
-            "t-distributed proposals (proposal_t_dof > 0) need a gamma "
-            "sampler, not ported yet (ROADMAP A6)"
-        )
     E, L, d = x_el.shape
     log_resp = _ensemble_log_resp(prop, x_el)  # (E, L, K)
     sel = torch.argmax(gumbel_el + log_resp, dim=-1)  # (E, L)
@@ -190,6 +190,10 @@ def propose_ensemble(prop: BlockProposal, x_el, lower, upper, gumbel_el, z_el):
     steps = torch.einsum("lkij,elj->elki", prop.chols, z_el)  # (E, L, K, d)
     step = steps.gather(2, sel[:, :, None, None].expand(E, L, 1, d))[:, :, 0]
     scale_sel = prop.scales.reshape(E, L, -1).gather(2, sel[:, :, None])
+    if prop.t_dof > 0.0:
+        # the reference's quirk, kept as the JAX package keeps it:
+        # w ~ Gamma(nu/2, SCALE=nu/2), so the step scales by rsqrt(g nu/2)
+        scale_sel = torch.rsqrt(gamma_el * (0.5 * prop.t_dof))[..., None] * scale_sel
     new_block = reflect_on_bounds(x_el + step * scale_sel, lower, upper)
     return new_block, sel, log_resp
 
@@ -228,7 +232,7 @@ def build_block_proposal(
     """Assemble a BlockProposal from host GMM fits, one per LADDER POSITION
     (bcm3_tpu_torch.stats.gmm.GMM objects), shared by every ensemble;
     the scale state is per chain. Components are padded to the max K."""
-    if proposal_type not in ("gaussian_mixture", "global_covariance"):
+    if proposal_type == "clustered_covariance":
         raise NotImplementedError(
             f"proposal type '{proposal_type}' is not ported yet (ROADMAP A6)"
         )
@@ -272,6 +276,6 @@ def build_block_proposal(
         selected=torch.full((num_chains,), -1, dtype=torch.long, device=device),
         t_dof=float(t_dof),
         target_accept=ta,
-        update_rule=RULE_GMM if proposal_type == "gaussian_mixture" else RULE_BASE,
+        update_rule=RULE_BASE if proposal_type == "global_covariance" else RULE_GMM,
         symmetric=proposal_type == "global_covariance",
     )

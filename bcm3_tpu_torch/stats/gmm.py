@@ -4,9 +4,8 @@ Copied from the JAX package's bcm3_tpu/stats/gmm.py (numpy only). Split
 of the reference GMM (reference: src/stats/GMM.cpp): fitting runs on the
 host at the sampler's adaptation boundary, while *evaluation*
 (responsibilities, densities, proposal draws) runs on the device — see
-bcm3_tpu_torch/sampler/proposal.py. The AIC-selected component ladder
-(`fit_gmm_best_aic`) belongs to the adaptation boundary and is not
-ported yet (ROADMAP A6).
+bcm3_tpu_torch/sampler/proposal.py. The batched EM that runs the same
+fits on a torch device is bcm3_tpu_torch/stats/gmm_device.py.
 
 Faithful to the reference algorithm:
 - k-means++ initialization (GMM.cpp:188-246)
@@ -23,6 +22,8 @@ from typing import Optional
 
 import numpy as np
 from scipy.linalg import solve_triangular
+
+from bcm3_tpu_torch.stats.summary import effective_sample_size
 
 _MAX_EM_STEPS = 100
 _EM_RETRIES = 4
@@ -272,4 +273,49 @@ def fit_gmm(
     gmm.logl = logl
     gmm.aic = 2 * nparam - 2 * logl
     return gmm
+
+
+def fit_gmm_best_aic(
+    history: np.ndarray,
+    rng: np.random.Generator,
+    select_with_adjusted_aic: bool = False,
+    log=None,
+) -> Optional[GMM]:
+    """Fit GMMs over the component ladder, select lowest AIC with ESS gating
+    (reference: ProposalGaussianMixture.cpp InitializeImpl:129-210)."""
+    history = np.asarray(history, dtype=np.float64)
+    n, D = history.shape
+    if n < 2:
+        return None
+
+    ess = np.array([effective_sample_size(history[:, i]) for i in range(D)])
+    min_ess = float(np.min(ess))
+    if not np.isfinite(min_ess) or min_ess <= 0:
+        min_ess = 1.0
+    aic_adjust_factor = min_ess / n
+    ess_factor = n / min_ess
+
+    best_gmm = None
+    best_aic = np.inf
+    for k in COMPONENT_LADDER:
+        if min_ess < k * (1 + min(D // 2, 10)):
+            if log:
+                log(f"GMM k={k}: not enough effective samples (min ESS {min_ess:.1f})")
+            continue
+        gmm = fit_gmm(history, k, rng, ess_factor)
+        if gmm is None:
+            if log:
+                log(f"GMM k={k}: fit failed")
+            continue
+        nparam = 0.5 * gmm.aic + gmm.logl
+        adjusted_aic = 2.0 * nparam - 2.0 * aic_adjust_factor * gmm.logl
+        if log:
+            log(f"GMM k={k}: AIC={gmm.aic:.6g}, adjusted AIC={adjusted_aic:.6g}")
+        # quirk preserved from the reference: in adjusted mode the adjusted
+        # AIC is compared against the stored *plain* AIC of the incumbent
+        crit = adjusted_aic if select_with_adjusted_aic else gmm.aic
+        if crit < best_aic:
+            best_gmm = gmm
+            best_aic = gmm.aic
+    return best_gmm
 

@@ -22,17 +22,31 @@ Phases, each printing its lines before the last:
    the wall per iteration of the iterations alone, and under
    torch.profiler the device's busy time per iteration and its largest
    kernels;
-6. the port on the card (float32, kernels) against the port on the CPU
+6. the adapted slice, bench.py's `bench_adapted` protocol on the `one`
+   configuration with proposal adaptation on (100 samples, adaptations at
+   33 and 66, the batched GMM EM on the card): a cold sampler's run()
+   crosses both boundaries, a second sampler's run() gives the warm
+   boundary stall, and one more run() of it, with the adapted proposals
+   and no boundary, gives the wall, the device profile and ESS/s; each
+   boundary's seconds are split into the history gather, the EM fits (and
+   the eigendecompositions within them) and the proposal build;
+7. the batched EM on the card (float64) against the same code on the CPU,
+   on 7 histories of 2000 x 40 rows of the adapted run's T=1 samples, fit
+   by fit (see phase_em for what may differ and why), and
+   torch.linalg.eigh on one EM step's largest batch under each CUDA
+   linear-algebra backend and on the CPU;
+8. the port on the card (float32, kernels) against the port on the CPU
    (float64 tables, plain versions) for 256 prior draws of each model.
 
 The kernels' launch counters are set to 0 just before phase 4 and read
-just after phase 5, so the counts show that the main path itself went
+just after phase 6, so the counts show that the main path itself went
 through the kernels. Any failed check raises, and the script exits
 non-zero without printing a result. The last line is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
 JAX is neither needed nor imported.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -47,6 +61,15 @@ ENSEMBLES = {"one": 8192, "one_transit": 4096}
 NUM_SAMPLES = {"one": 20, "one_transit": 4}
 USE_EVERY_NTH = 5
 ORACLE_DRAWS = 256
+# bench.py bench_adapted: NUM_SAMPLES 100, BENCH_ADAPT_TIMES 2, seed 2024
+ADAPTED_SAMPLES = 100
+ADAPT_TIMES = 2
+EM_HISTORIES, EM_ROWS = 7, 2000
+EM_RTOL = 1e-6
+# singular-test margins (units of its tolerance) below this are at its edge
+EM_EDGE = 1e3
+# bench.py ess_stats: per-chain ESS over this many ensembles
+ESS_ENSEMBLES = 256
 
 # published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
 # the tensor cores, and HBM3 bandwidth
@@ -352,7 +375,273 @@ def phase_slice(pk_type, models):
         f"iteration (under the profiler), idle share {idle}")
     for name, ms in top:
         log(f"  device ms per iteration {ms:.4f}  {name[:120]}")
+    return dict(res, wall_ms=wall_ms, busy_ms=busy_ms)
+
+
+def adapted_sampler(prior, lik):
+    """bench.py build_sampler(100, 2, 2024, "one", 8192, emit_fixed_only=True)
+    in the port, on the card; the GMM backend "auto" is the batched EM at
+    D = 40."""
+    import torch
+
+    from bcm3_tpu_torch.sampler import PTConfig, SamplerPT
+
+    cfg = PTConfig(
+        num_samples=ADAPTED_SAMPLES,
+        use_every_nth=USE_EVERY_NTH,
+        num_chains=NUM_CHAINS,
+        num_ensembles=ENSEMBLES["one"],
+        adapt_proposal_samples=ADAPTED_SAMPLES // (ADAPT_TIMES + 1),
+        adapt_proposal_times=ADAPT_TIMES,
+        max_history_size=2000,
+        swapping_scheme="deterministic_even_odd",
+        seed=2024,
+        emit_dtype=torch.float32,
+        emit_fixed_only=True,
+        gmm_fit_backend="auto",
+        device="cuda",
+        dtype=torch.float32,
+    )
+    return SamplerPT(prior, lik, cfg)
+
+
+def check_run(res, sampler, boundaries):
+    import numpy as np
+
+    S, E, D = ADAPTED_SAMPLES, sampler.num_ensembles, sampler.num_variables
+    assert res["samples"].shape == (S * E, 1, D), res["samples"].shape
+    assert res["adaptation_boundaries"] == boundaries, res["adaptation_boundaries"]
+    lpost = res["log_prior"] + res["log_likelihood"]
+    assert np.isfinite(lpost).all(), "non-finite emitted log-posterior"
+    mut, _ = sampler.acceptance_rates(sampler.state)
+    assert 0.0 < mut[-1] < 1.0, f"T=1 mutate acceptance {mut[-1]}"
+    return mut
+
+
+def log_boundaries(name, res, smi):
+    for i, b in enumerate(res["adaptation_breakdown"]):
+        fs = b["fit_stats"]
+        total = b["gather_seconds"] + b["fit_seconds"] + b["build_seconds"]
+        log(f"{name} boundary {i + 1}: {total:.3f} s = history gather "
+            f"{b['gather_seconds']:.3f} s + EM fits {b['fit_seconds']:.3f} s (of which "
+            f"torch.linalg.eigh {fs.get('eigh_seconds', 0.0):.3f} s) + proposal "
+            f"build {b['build_seconds']:.3f} s; fits per k {fs.get('fits')}, batched EM "
+            f"steps per k {fs.get('em_steps')}, mean E-steps per fit "
+            f"{ {k: round(v, 2) for k, v in fs.get('em_steps_per_fit', {}).items()} }; "
+            f"components per ladder position {b['components']} on {smi}")
+    log(f"{name} run: {res['adaptation_boundaries']} boundaries, "
+        f"{res['adaptation_seconds']:.3f} s in them, run {res['elapsed_seconds']:.3f} s")
+
+
+def ess_stats(res, num_ensembles, seconds):
+    """bench.py ess_stats: per-chain ESS of the T=1 traces of the first
+    ESS_ENSEMBLES ensembles (FFT-batched), mean over variables and chains
+    and the worst variable's mean, and ESS per second over the population."""
+    import numpy as np
+
+    from bcm3_tpu_torch.analysis import effective_sample_size_batched
+
+    samples = res["samples"]
+    E = num_ensembles
+    S, D = samples.shape[0] // E, samples.shape[2]
+    Esub = min(E, ESS_ENSEMBLES)
+    x = samples.reshape(S, E, samples.shape[1], D)[:, :Esub, -1, :]
+    ess = effective_sample_size_batched(
+        np.ascontiguousarray(x.reshape(S, Esub * D), dtype=np.float64)
+    ).reshape(Esub, D)
+    ess_mean, ess_min = float(ess.mean()), float(ess.mean(axis=0).min())
+    return {
+        "ess_per_chain_mean": ess_mean,
+        "ess_per_chain_min_var": ess_min,
+        "ess_per_sec": ess_mean * E / seconds,
+        "ess_min_var_per_sec": ess_min * E / seconds,
+    }
+
+
+def phase_adapted(models, unadapted, smi):
+    """bench_adapted's protocol on the card (bench.py:232-283)."""
+    import numpy as np
+    import torch
+
+    prior, lik = models["one"]
+    cold = adapted_sampler(prior, lik)
+    res = cold.run()
+    check_run(res, cold, ADAPT_TIMES)
+    log_boundaries("adapted cold", res, smi)
+    del cold, res
+    torch.cuda.empty_cache()
+
+    warm = adapted_sampler(prior, lik)
+    res = warm.run()
+    check_run(res, warm, ADAPT_TIMES)
+    log_boundaries("adapted warm", res, smi)
+    for p in warm.proposals:
+        assert torch.isfinite(p.means).all() and torch.isfinite(p.chols).all()
+    log(f"adapted proposals: components per ladder position "
+        f"{[int(torch.isfinite(lw).sum()) for lw in warm.proposals[0].log_weights]}")
+
+    # the adapted regime: no boundary left, the proposals from the fits with
+    # fresh scales; the profile covers as many iterations as the unadapted
+    # slice's (no boundary is left to cross at any length)
+    res = warm.run()
+    mut = check_run(res, warm, 0)
+    iterations = ADAPTED_SAMPLES * USE_EVERY_NTH
+    wall_ms = res["sampling_seconds"] * 1e3 / iterations
+    warm.config = dataclasses.replace(warm.config, num_samples=NUM_SAMPLES["one"])
+    busy_ms, top = profile_sampling(warm, NUM_SAMPLES["one"] * USE_EVERY_NTH)
+    assert warm.adaptation_boundaries == 0
+    E = warm.num_ensembles
+    ess = ess_stats(res, E, res["elapsed_seconds"])
+    ess_sampling = ess_stats(res, E, res["sampling_seconds"])
+    idle = "not measured" if busy_ms is None else f"{1.0 - busy_ms / wall_ms:.4f}"
+    log(f"adapted steady state: {iterations} iterations, wall {wall_ms:.4f} ms per "
+        f"iteration = {E * NUM_CHAINS / wall_ms * 1e3:.1f} evals/s, device busy "
+        f"{busy_ms if busy_ms is not None else 'not measured'} ms per iteration "
+        f"(under the profiler, {NUM_SAMPLES['one'] * USE_EVERY_NTH} iterations), "
+        f"idle share {idle}; unadapted `one`: wall {unadapted['wall_ms']:.4f} ms, busy "
+        f"{unadapted['busy_ms']} ms; on {smi}")
+    for name, ms in top:
+        log(f"  device ms per iteration {ms:.4f}  {name[:120]}")
+    log(f"adapted run: {res['evaluations']} evaluations in {res['elapsed_seconds']:.3f} s = "
+        f"{res['evals_per_second']:.1f} evals/s; mutate acceptance by temperature "
+        f"{np.round(mut, 4).tolist()}")
+    log(f"adapted ESS per chain: mean {ess['ess_per_chain_mean']:.4f}, worst variable "
+        f"{ess['ess_per_chain_min_var']:.4f} of {ADAPTED_SAMPLES} samples; ESS/s "
+        f"{ess['ess_per_sec']:.1f} (worst variable {ess['ess_min_var_per_sec']:.1f}) over "
+        f"the run's {res['elapsed_seconds']:.3f} s, {ess_sampling['ess_per_sec']:.1f} over "
+        f"its iterations' {res['sampling_seconds']:.3f} s; on {smi}")
     return res
+
+
+def phase_em(res, smi):
+    """The batched EM on the card against the same code on the CPU, both
+    float64, from the same k-means++ starts (one host seed), on histories
+    of the adapted run's T=1 rows. The two fits run at once, the CPU's in a
+    second thread.
+
+    A fit's course (the step it stops at, converged or singular) turns on
+    the M-step's singular test. For a component with about D points or
+    fewer that test compares eigenvalues that are 0 up to eigh's rounding,
+    and cuSOLVER and the CPU's LAPACK may decide it apart; the fit then
+    takes another course, and the history may select another fit. Each fit
+    reports its edge, the least margin of that test it met (in units of
+    the test's tolerance). Limits: every fit whose course differs met the
+    edge (below EM_EDGE on the card or the CPU); every fit with the same
+    course agrees in means, covariances and weights within EM_RTOL (atol
+    EM_RTOL times the array's largest entry: entries near 0 carry the fit's
+    absolute rounding); every history none of whose fits differ in course
+    selects the same component count, with parameters within EM_RTOL."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch.stats import gmm_device as gd
+
+    rows = res["samples"][:, -1, :].astype(np.float64)
+    rng = np.random.default_rng(11)
+    hs = [rows[rng.choice(len(rows), EM_ROWS, replace=False)] for _ in range(EM_HISTORIES)]
+    metas, candidates, fits, fit_meta = gd._prepare_fits(hs, np.random.default_rng(5))
+    stats = {"cuda": {}, "cpu": {}}
+    seconds = {}
+
+    def run(dev):
+        t0 = time.perf_counter()
+        per_fit = gd._run_fits(metas, fits, fit_meta, dev, stats[dev])
+        seconds[dev] = time.perf_counter() - t0
+        return per_fit
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 1))  # a core for the card's thread
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            cpu = pool.submit(run, "cpu")
+            per = {"cuda": run("cuda"), "cpu": cpu.result()}
+    finally:
+        torch.set_num_threads(threads)
+
+    a, b = per["cuda"], per["cpu"]
+    differs = np.zeros(len(fits), dtype=bool)
+    for f in ("converged", "singular", "steps"):
+        differs |= a[f] != b[f]
+    edge = np.minimum(a["edge"], b["edge"]) < EM_EDGE
+    worst = 0.0  # per fit: max |card - CPU| over max |CPU| of each array
+    for f in ("means", "covs", "weights"):
+        x, y = a[f][~differs], b[f][~differs]
+        if x.size:
+            axes = tuple(range(1, x.ndim))
+            worst = max(worst, float(np.max(np.abs(x - y).max(axis=axes)
+                                            / np.abs(y).max(axis=axes))))
+    sel = {dev: gd._select_fits(metas, candidates, fit_meta, per[dev], False)
+           for dev in per}
+    ks = {dev: [0 if g is None else g.num_components for g in sel[dev]] for dev in sel}
+    pos = np.asarray([p for p, _ in fit_meta])
+    clean = [p for p in range(EM_HISTORIES) if not differs[pos == p].any()]
+    kf = np.asarray([k for _, k in fit_meta])
+
+    def per_k(mask):
+        return {int(k): int(mask[kf == k].sum()) for k in np.unique(kf)}
+
+    log(f"EM card vs CPU: {EM_HISTORIES} histories of {EM_ROWS} x {rows.shape[1]}, "
+        f"{len(fits)} fits (per k {stats['cpu']['fits']}), {int(edge.sum())} at the singular "
+        f"test's edge (margin < {EM_EDGE:g} on either), {int(differs.sum())} of another "
+        f"course (card singular {int(a['singular'].sum())}, CPU {int(b['singular'].sum())}), "
+        f"of those at the edge {int((differs & edge).sum())} (per k: at the edge "
+        f"{per_k(edge)}, of another course {per_k(differs)}); same-course fits: worst "
+        f"|card - CPU| / max |CPU| per fit of means, covariances, weights {worst:.3e} (limit "
+        f"{EM_RTOL}); components chosen card {ks['cuda']} / CPU {ks['cpu']}, histories "
+        f"with no fit of another course {clean}; card {seconds['cuda']:.3f} s "
+        f"(torch.linalg.eigh {stats['cuda']['eigh_seconds']:.3f} s, batched EM steps "
+        f"{stats['cuda']['em_steps']}), CPU {seconds['cpu']:.3f} s (torch.linalg.eigh "
+        f"{stats['cpu']['eigh_seconds']:.3f} s), run at once; on {smi}")
+    eigh_backends(hs, smi)
+    assert not (differs & ~edge).any(), (
+        f"EM: {int((differs & ~edge).sum())} fits took another course away from the edge")
+    assert worst <= EM_RTOL, f"EM card vs CPU: same-course fits differ by {worst}"
+    for p in clean:
+        g, h = sel["cuda"][p], sel["cpu"][p]
+        assert ks["cuda"][p] == ks["cpu"][p], f"EM history {p}: components {ks}"
+        for f in ("means", "covariances", "weights"):
+            if h is not None:
+                np.testing.assert_allclose(
+                    getattr(g, f), getattr(h, f), rtol=EM_RTOL,
+                    atol=EM_RTOL * np.abs(getattr(h, f)).max(), err_msg=f"EM history {p}: {f}")
+
+
+def eigh_backends(hs, smi):
+    """torch.linalg.eigh on the EM's largest batch of one step (k = 13: 7
+    positions x 4 retries x 13 components, 40 x 40 float64 correlation
+    matrices) under each CUDA linear-algebra backend of this torch build,
+    and on the CPU: the eigenvalues agree, and the times say what a
+    faster EM would have to beat."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(12)
+    n, D = EM_HISTORIES * 4 * 13, hs[0].shape[1]
+    x = rng.normal(size=(n, 3 * D, D)) @ (np.eye(D) + 0.3 * rng.normal(size=(D, D)))
+    cov = np.einsum("bni,bnj->bij", x, x)
+    sd = np.sqrt(np.einsum("bii->bi", cov))
+    corr = torch.as_tensor(cov / (sd[:, :, None] * sd[:, None, :]), device="cuda")
+    cpu = corr.cpu()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ref = torch.linalg.eigvalsh(cpu)
+    cpu_ms = (time.perf_counter() - t0) * 1e3 / 3
+    times = {}
+    libs = ["cusolver"] + (["magma"] if torch.cuda.has_magma else [])
+    try:
+        for lib in libs:
+            torch.backends.cuda.preferred_linalg_library(lib)
+            times[lib] = cuda_ms(lambda: torch.linalg.eigh(corr), 3)
+            err = (torch.linalg.eigh(corr)[0].cpu() - ref).abs().max().item()
+            assert err <= 1e-10 * ref.abs().max().item(), f"eigh under {lib}: {err}"
+    finally:
+        torch.backends.cuda.preferred_linalg_library("default")
+    log(f"torch.linalg.eigh of {n} {D} x {D} float64 matrices (one EM step at k = 13): "
+        + ", ".join(f"{lib} {ms:.3f} ms" for lib, ms in times.items())
+        + ("" if torch.cuda.has_magma else ", magma not in this torch build")
+        + f", CPU {cpu_ms:.3f} ms ({torch.get_num_threads()} threads); on {smi}")
 
 
 def profile_sampling(sampler, iterations):
@@ -431,46 +720,48 @@ def phase_oracle(pk_type, workdir):
 
 def main(workdir):
     phase_times = {}
-    t = time.perf_counter()
-    smi = phase_environment()
+
+    def timed(name, fn, *args):
+        """fn(*args), its seconds logged as soon as it ends (so a run cut
+        by its time limit still shows where the time went)."""
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_times[name] = time.perf_counter() - t
+        log(f"phase {name}: {phase_times[name]:.3f} s")
+        return out
+
+    smi = timed("environment", phase_environment)
     import torch
 
     from bcm3_tpu_torch.ops import poppk_kernels, transit_kernels
 
-    phase_times["environment"] = time.perf_counter() - t
-
-    t = time.perf_counter()
-    phase_build()
-    phase_times["build"] = time.perf_counter() - t
-
+    timed("build", phase_build)
     models = {k: build_model(k, workdir) for k in ("one", "one_transit")}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    t = time.perf_counter()
-    kernels = phase_kernels(models, gen)
-    phase_times["kernels"] = time.perf_counter() - t
+    kernels = timed("kernels", phase_kernels, models, gen)
 
     b1 = poppk_kernels.propagate_intervals_one_compartment
     b2 = transit_kernels.transit_solve
     b1.launches = 0
     b2.launches = 0
-    slices = {}
-    for pk_type in ("one", "one_transit"):
-        t = time.perf_counter()
-        slices[pk_type] = phase_slice(pk_type, models)
-        phase_times[f"slice_{pk_type}"] = time.perf_counter() - t
+    slices = {k: timed(f"slice_{k}", phase_slice, k, models) for k in ("one", "one_transit")}
+    before_adapted = b1.launches
+    adapted = timed("slice_one_adapted", phase_adapted, models, slices["one"], smi)
     launches = {"poppk_propagate": b1.launches, "transit_dp5": b2.launches}
     assert launches["poppk_propagate"] > 0, "the `one` slice never launched B1"
     assert launches["transit_dp5"] > 0, "the `one_transit` slice never launched B2"
-    log(f"main-path launches: {launches}")
+    assert b1.launches > before_adapted, "the adapted slice never launched B1"
+    log(f"main-path launches: {launches} (the adapted slice's B1: "
+        f"{b1.launches - before_adapted})")
 
-    t = time.perf_counter()
+    timed("em_card_vs_cpu", phase_em, adapted, smi)
     for pk_type in ("one", "one_transit"):
-        phase_oracle(pk_type, workdir)
-    phase_times["card_vs_cpu"] = time.perf_counter() - t
+        timed(f"card_vs_cpu_{pk_type}", phase_oracle, pk_type, workdir)
     log("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phase_times.items()}))
     log("slice evals/s: " + json.dumps(
-        {k: v["evals_per_second"] for k, v in slices.items()}
+        dict({k: v["evals_per_second"] for k, v in slices.items()},
+             one_adapted=adapted["evals_per_second"])
     ) + f" on {smi}")
 
     meta = {

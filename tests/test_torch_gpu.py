@@ -7,6 +7,10 @@ JAX for the other tests):
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
+The batched GMM EM of the adaptation boundary runs on the card in float64
+and is held to the same code on the CPU; a short adapted run crosses its
+boundaries on the card.
+
 Each kernel is held to its plain PyTorch version on the same inputs:
 - B1: rtol 1e-5 in float32, 1e-12 in float64;
 - B2 (float32): the kernel is built without FMA contraction and with the
@@ -230,3 +234,78 @@ def test_sampler_runs_through_the_kernels(cuda, tmp_path, pk_type):
         # both float32 solves, with the card's and the CPU's exp/log: a
         # small share of lanes takes another adaptive step sequence
         assert flips <= 3 and (rel <= 5e-3).double().mean().item() >= 0.95
+
+
+def _clusters(seed, n=800, D=12):
+    """Three Gaussian clusters with a shared full covariance shape."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0.0, 3.0, (3, D))
+    shape = np.eye(D) + 0.3 * rng.normal(size=(D, D))
+    return centers[rng.integers(0, 3, n)] + rng.normal(size=(n, D)) @ shape
+
+
+def test_device_em_matches_cpu(cuda):
+    """The batched EM on the card against the same code on the CPU, both
+    float64 from the same k-means++ starts. A fit may take another course
+    (stop step, flags) only where it met the singular test's edge, where
+    eigh's rounding decides the test; every fit of the same course agrees
+    within rtol 1e-6 (atol 1e-6 of each array's largest entry), and every
+    history none of whose fits took another course selects the same
+    component count."""
+    from bcm3_tpu_torch.stats import gmm_device as gd
+
+    hs = [_clusters(s) for s in (1, 2, 3)]
+    metas, candidates, fits, fit_meta = gd._prepare_fits(hs, np.random.default_rng(4))
+    assert fits
+    card = gd._run_fits(metas, fits, fit_meta, cuda)
+    cpu = gd._run_fits(metas, fits, fit_meta, "cpu")
+    differs = np.zeros(len(fits), dtype=bool)
+    for f in ("converged", "singular", "steps"):
+        differs |= card[f] != cpu[f]
+    assert not (differs & (np.minimum(card["edge"], cpu["edge"]) >= 1e3)).any()
+    for f in ("means", "covs", "weights", "logl"):
+        x, y = card[f][~differs], cpu[f][~differs]
+        np.testing.assert_allclose(x, y, rtol=1e-6, atol=1e-6 * np.abs(y).max(), err_msg=f)
+    sel = [gd._select_fits(metas, candidates, fit_meta, r, False) for r in (card, cpu)]
+    pos = np.asarray([p for p, _ in fit_meta])
+    for p in range(len(hs)):
+        if not differs[pos == p].any():
+            assert sel[0][p].num_components == sel[1][p].num_components
+
+
+def test_adapted_run_on_the_card(cuda, tmp_path):
+    """A short PopPK `one` run with two adaptations, the batched EM on the
+    card: both boundaries in the first run(), none in the second, finite
+    samples and adapted proposals, and B1 launched."""
+    from bcm3_tpu_torch import Prior, VariableSet
+    from bcm3_tpu_torch.likelihoods import Likelihood
+    from bcm3_tpu_torch.likelihoods.poppk import PopPKLikelihood
+    from bcm3_tpu_torch.likelihoods.poppk_synth import synthesize_trial, write_poppk_prior_xml
+    from bcm3_tpu_torch.sampler import PTConfig, SamplerPT
+
+    P = 6
+    path = str(tmp_path / "prior.xml")
+    write_poppk_prior_xml(path, P, "one")
+    vs = VariableSet.from_xml(path)
+    prior = Prior.from_xml(path, vs)
+    trial, _ = synthesize_trial(num_patients=P, num_timepoints=12, seed=3)
+    pk = PopPKLikelihood(vs, trial, "one", "lapatinib")
+    lik = Likelihood("pop_pk_trajectory", pk.log_prob_batched, model=pk)
+    before = propagate_intervals_one_compartment.launches
+    cfg = PTConfig(
+        num_samples=12, use_every_nth=2, num_chains=4, num_ensembles=64,
+        adapt_proposal_samples=4, adapt_proposal_times=2, emit_fixed_only=True,
+        gmm_fit_backend="device", seed=5, device="cuda", dtype=torch.float32,
+    )
+    sampler = SamplerPT(prior, lik, cfg)
+    res = sampler.run()
+    assert res["adaptation_boundaries"] == 2
+    assert propagate_intervals_one_compartment.launches > before
+    for p in sampler.proposals:
+        assert p.means.is_cuda and torch.isfinite(p.means).all() and torch.isfinite(p.chols).all()
+    assert max(p.max_components for p in sampler.proposals) > 1
+    again = sampler.run()
+    assert again["adaptation_boundaries"] == 0
+    for r in (res, again):
+        assert r["samples"].shape == (12 * 64, 1, vs.num_variables)
+        assert np.isfinite(r["log_prior"] + r["log_likelihood"]).all()

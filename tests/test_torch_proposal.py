@@ -146,6 +146,37 @@ def test_propose_ensemble_matches_jax(proposed):
     np.testing.assert_allclose(_np(tresp)[fin], np.asarray(jresp)[fin], rtol=RTOL)
 
 
+def test_propose_ensemble_t_matches_jax():
+    """t-distributed steps (nu = 5): the JAX package's per-lane gamma draw,
+    jax.random.gamma(kg, nu/2) from the third key of split(key, 3), is
+    handed to the port as its (E, L) standard-gamma draw."""
+    nu = 5.0
+    jp, tp = _build()
+    jp, tp = dataclasses.replace(jp, t_dof=nu), dataclasses.replace(tp, t_dof=nu)
+    x = np.random.default_rng(7).normal(0.0, 1.0, (E, L, d))
+    lower, upper = np.full(d, -np.inf), np.full(d, np.inf)
+    keys = _keys(12)
+    jnb, jsel, _ = jprop.propose_ensemble(
+        jp, jnp.asarray(x), jnp.asarray(lower), jnp.asarray(upper), keys.reshape(E, L, 2)
+    )
+    g, z = _jax_propose_draws(keys, tp.max_components)
+    gam = jax.vmap(lambda k: jax.random.gamma(jax.random.split(k, 3)[2], 0.5 * nu, dtype=F64))(keys)
+    tnb, tsel, _ = tprop.propose_ensemble(
+        tp, torch.as_tensor(x), torch.as_tensor(lower), torch.as_tensor(upper),
+        torch.as_tensor(g).reshape(E, L, -1), torch.as_tensor(z).reshape(E, L, d),
+        torch.as_tensor(np.array(gam)).reshape(E, L),
+    )
+    np.testing.assert_array_equal(_np(tsel), np.asarray(jsel))
+    np.testing.assert_allclose(_np(tnb), np.asarray(jnb), rtol=RTOL)
+    # the t step differs from the Gaussian one on the same draws
+    gauss, _, _ = tprop.propose_ensemble(
+        dataclasses.replace(tp, t_dof=0.0), torch.as_tensor(x), torch.as_tensor(lower),
+        torch.as_tensor(upper), torch.as_tensor(g).reshape(E, L, -1),
+        torch.as_tensor(z).reshape(E, L, d),
+    )
+    assert not np.allclose(_np(gauss), _np(tnb))
+
+
 @pytest.mark.parametrize("reuse", [True, False], ids=["reused_resp", "recomputed_resp"])
 def test_mh_log_ratio_ensemble_matches_jax(proposed, reuse):
     """Both the responsibility-reuse path and the recompute path equal the
