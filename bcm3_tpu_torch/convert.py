@@ -5,7 +5,8 @@ as mappings of field name -> numpy array (e.g.
 ``{f: np.asarray(getattr(state, f)) for f in STATE_FIELDS}``), these
 functions build the port's objects on a chosen device and dtype. One
 mutate/exchange step can then start from identical state in both packages.
-The port keeps no PRNG key in its state (its randomness is the sampler's
+A JAX `ClusterAssigner` carries across the same way, so that both packages
+assign clusters with the same fit. The port keeps no PRNG key in its state (its randomness is the sampler's
 `torch.Generator`), so the JAX state's `key` is not read.
 """
 
@@ -18,6 +19,8 @@ import torch
 
 from bcm3_tpu_torch.sampler.proposal import BlockProposal
 from bcm3_tpu_torch.sampler.pt import PTState
+from bcm3_tpu_torch.sampler.spectral import ARRAY_FIELDS as ASSIGNER_FIELDS
+from bcm3_tpu_torch.sampler.spectral import ClusterAssigner
 
 STATE_FIELDS = (
     "x", "lprior", "llh", "att_mut", "acc_mut", "att_exc", "acc_exc",
@@ -27,7 +30,8 @@ PROPOSAL_FIELDS = (
     "means", "chols", "inv_chols", "log_weights", "log_c", "scales",
     "acc_ema", "selected",
 )
-PROPOSAL_META = ("t_dof", "target_accept", "update_rule", "symmetric")
+PROPOSAL_META = ("t_dof", "target_accept", "update_rule", "symmetric", "clustered")
+ASSIGNER_META = ("nn", "nn2")
 
 
 def _tensor(a, dtype, device):
@@ -69,9 +73,6 @@ def block_proposal_from_arrays(
     """A BlockProposal from the JAX package's proposal fields as numpy
     arrays, in its shared (L, K, ...) mixture layout, plus its static
     fields (`PROPOSAL_META`)."""
-    if meta.get("clustered", False):
-        raise NotImplementedError("clustered proposals are not ported yet (ROADMAP A6)")
-
     return BlockProposal(
         **{f: _tensor(arrays[f], dtype, device) for f in PROPOSAL_FIELDS[:-1]},
         selected=_tensor(arrays["selected"], torch.long, device),
@@ -79,4 +80,18 @@ def block_proposal_from_arrays(
         target_accept=float(meta["target_accept"]),
         update_rule=int(meta["update_rule"]),
         symmetric=bool(meta["symmetric"]),
+        clustered=bool(meta.get("clustered", False)),
+    )
+
+
+def cluster_assigner_from_arrays(
+    arrays: Mapping[str, np.ndarray], meta: Mapping[str, int], device
+) -> ClusterAssigner:
+    """The port's ClusterAssigner (float64 tensors on `device`) from a JAX
+    package ClusterAssigner's fields (`ASSIGNER_FIELDS`) as numpy arrays
+    and its `ASSIGNER_META` (nn, nn2)."""
+    return ClusterAssigner(
+        **{f: _tensor(arrays[f], torch.float64, device) for f in ASSIGNER_FIELDS},
+        nn=int(meta["nn"]),
+        nn2=int(meta["nn2"]),
     )

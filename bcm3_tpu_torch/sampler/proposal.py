@@ -30,6 +30,15 @@ Semantics as in the reference:
   (ProposalGlobalCovariance.cpp:17-23 with RNG::GetGamma's shape/scale
   convention, src/utils/RNG.cpp:84-110), with the MH ratio kept Gaussian,
   as the JAX package has both
+- clustered covariance (ProposalClusteredCovariance.cpp:26-84): the
+  component is the spectral cluster of the chain's full position
+  (bcm3_tpu_torch/sampler/spectral.py), and the MH ratio is 0 within a
+  cluster, else the ratio of the two clusters' step densities
+
+The JAX package also has per-chain forms of every function (`propose`,
+`propose_clustered`, ...), for proposals whose mixture arrays are stored
+per chain. The port's adaptation always builds one mixture per ladder
+position, so it has the shared-layout functions only.
 """
 
 from __future__ import annotations
@@ -78,6 +87,9 @@ class BlockProposal:
     target_accept: float = 0.234
     update_rule: int = RULE_GMM
     symmetric: bool = False  # True for global_covariance (MH ratio 0)
+    # clustered_covariance: component = the chain's spectral cluster, not a
+    # responsibility draw (reference: ProposalClusteredCovariance.cpp:26-56)
+    clustered: bool = False
 
     @property
     def ladder_size(self) -> int:
@@ -220,6 +232,47 @@ def mh_log_ratio_ensemble(prop: BlockProposal, x_el, new_el, log_fwd_resp=None):
     return rev - fwd
 
 
+def propose_clustered_ensemble(
+    prop: BlockProposal, x_el, cluster_el, lower, upper, z_el, gamma_el=None
+):
+    """New block positions for every (ensemble, ladder) lane of a clustered
+    proposal: the component is the lane's cluster (E, L), clamped to the
+    components, instead of a responsibility draw (reference:
+    ProposalClusteredCovariance.cpp GetNewSample:26-56). z_el: (E, L, d)
+    standard normals; gamma_el: (E, L) Gamma(nu/2, 1) draws for t steps.
+    Returns (new_block (E, L, d), selected (E, L) int64)."""
+    E, L, d = x_el.shape
+    sel = torch.clamp(cluster_el, 0, prop.max_components - 1)
+    steps = torch.einsum("lkij,elj->elki", prop.chols, z_el)  # (E, L, K, d)
+    step = steps.gather(2, sel[:, :, None, None].expand(E, L, 1, d))[:, :, 0]
+    scale_sel = prop.scales.reshape(E, L, -1).gather(2, sel[:, :, None])
+    if prop.t_dof > 0.0:
+        # the same Gamma(nu/2, scale=nu/2) mixing quirk as the mixture
+        # proposal (reference: ProposalClusteredCovariance.cpp:37-43)
+        scale_sel = torch.rsqrt(gamma_el * (0.5 * prop.t_dof))[..., None] * scale_sel
+    return reflect_on_bounds(x_el + step * scale_sel, lower, upper), sel
+
+
+def mh_log_ratio_clustered_ensemble(
+    prop: BlockProposal, x_el, new_el, cur_cluster_el, new_cluster_el
+):
+    """MH correction of a clustered move for every lane, (E, L) (reference:
+    ProposalClusteredCovariance.cpp CalculateMHRatio:58-84): 0 within a
+    cluster; across clusters the ratio of the two clusters' densities of
+    the step (symmetric in its sign), each with its -log(scale^2)."""
+    E, L, d = x_el.shape
+    K = prop.max_components
+    cc = torch.clamp(cur_cluster_el, 0, K - 1)
+    nc = torch.clamp(new_cluster_el, 0, K - 1)
+    scales_el = prop.scales.reshape(E, L, K)
+    v = (new_el - x_el)[:, :, None, :] / scales_el[..., None]  # (E, L, K, d)
+    s = torch.einsum("lkij,elkj->elki", prop.inv_chols, v)
+    base = -2.0 * torch.log(scales_el) + prop.log_c[None] - 0.5 * (s * s).sum(-1)
+    log_fwd = base.gather(2, cc[..., None])[..., 0]
+    log_bwd = base.gather(2, nc[..., None])[..., 0]
+    return torch.where(cc == nc, 0.0, log_bwd - log_fwd)
+
+
 def build_block_proposal(
     gmms,
     num_chains: int,
@@ -231,12 +284,16 @@ def build_block_proposal(
 ) -> BlockProposal:
     """Assemble a BlockProposal from host GMM fits, one per LADDER POSITION
     (bcm3_tpu_torch.stats.gmm.GMM objects), shared by every ensemble;
-    the scale state is per chain. Components are padded to the max K."""
-    if proposal_type == "clustered_covariance":
-        raise NotImplementedError(
-            f"proposal type '{proposal_type}' is not ported yet (ROADMAP A6)"
-        )
+    the scale state is per chain. Components are padded to the max K; a
+    clustered proposal's GMMs must all have K components, component index
+    = cluster index."""
     K = max(g.num_components for g in gmms)
+    clustered = proposal_type == "clustered_covariance"
+    if clustered and any(g.num_components != K for g in gmms):
+        raise ValueError(
+            "clustered proposals require component index == cluster index; "
+            "every ladder position must carry exactly num_clusters components"
+        )
     d = block_dim
     n_mix = len(gmms)
     means = np.zeros((n_mix, K, d))
@@ -278,4 +335,5 @@ def build_block_proposal(
         target_accept=ta,
         update_rule=RULE_BASE if proposal_type == "global_covariance" else RULE_GMM,
         symmetric=proposal_type == "global_covariance",
+        clustered=clustered,
     )

@@ -30,18 +30,35 @@ Phases, each printing its lines before the last:
    and no boundary, gives the wall, the device profile and ESS/s; each
    boundary's seconds are split into the history gather, the EM fits (and
    the eigendecompositions within them) and the proposal build;
-7. the batched EM on the card (float64) against the same code on the CPU,
-   on 7 histories of 2000 x 40 rows of the adapted run's T=1 samples, fit
-   by fit (see phase_em for what may differ and why), and
+7. the clustered slice, `slice_one_clustered`: the same protocol with
+   proposal_type "clustered_covariance" (one spectral clustering of the
+   pooled T=1 history per boundary, shared by every chain; each mutate
+   assigns the current and the proposed positions to clusters): each
+   boundary's parts (T=1 pull, spectral fit, labelling, blocking, history
+   gather, covariance fits, build) and cluster sizes, wall and device busy
+   per adapted iteration, the card's ms per `assign_batch` call of the
+   whole population, T=1 acceptance and ESS/s;
+8. `assign_card_vs_cpu`: the clustered run's assigner labels the whole
+   population (`assign_batch`) and every 8th row of the pooled T=1 history
+   (`assign_history`) on the card and on the CPU, float64; rows may be
+   labelled apart only where the CPU's top two centroid scores are within
+   ASSIGN_MARGIN of each other, and on at most ASSIGN_SHARE of the rows;
+9. `slice_one_autoblock`: the protocol again with "clustered_autoblock"
+   blocking and clustered proposals, at 8 x 1024 chains and 30 samples
+   (adaptations after 10 and 20): it starts with one block per variable and
+   re-blocks at each boundary; the block sizes after each boundary;
+10. the batched EM on the card (float64) against the same code on the CPU,
+   on EM_HISTORIES histories of 2000 x 40 rows of the adapted run's T=1
+   samples, fit by fit (see phase_em for what may differ and why), and
    torch.linalg.eigh on one EM step's largest batch under each CUDA
    linear-algebra backend and on the CPU;
-8. the port on the card (float32, kernels) against the port on the CPU
+11. the port on the card (float32, kernels) against the port on the CPU
    (float64 tables, plain versions) for 256 prior draws of each model.
 
-The kernels' launch counters are set to 0 just before phase 4 and read
-just after phase 6, so the counts show that the main path itself went
-through the kernels. Any failed check raises, and the script exits
-non-zero without printing a result. The last line is
+The kernels' launch counters are set to 0 just before each slice of the
+main path (phases 4-7 and 9) and read just after it, so the counts show
+that each slice itself went through the kernels. Any failed check raises,
+and the script exits non-zero without printing a result. The last line is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
 JAX is neither needed nor imported.
 """
@@ -64,7 +81,22 @@ ORACLE_DRAWS = 256
 # bench.py bench_adapted: NUM_SAMPLES 100, BENCH_ADAPT_TIMES 2, seed 2024
 ADAPTED_SAMPLES = 100
 ADAPT_TIMES = 2
-EM_HISTORIES, EM_ROWS = 7, 2000
+# 2 histories keep the script, with its clustered slices, inside its time limit
+EM_HISTORIES, EM_ROWS = 2, 2000
+CLUSTERED = dict(proposal_type="clustered_covariance")
+# slice_one_autoblock: 8 x 1024 chains, 30 samples, adaptations after 10, 20
+AUTOBLOCK = dict(
+    CLUSTERED, blocking_strategy="clustered_autoblock", num_ensembles=1024, num_samples=30,
+    adapt_proposal_samples=10,
+)
+# card and CPU labels may differ only on rows whose top two centroid scores
+# are this close (relative to the top), and on at most this share of rows
+ASSIGN_MARGIN, ASSIGN_SHARE = 1e-9, 1e-4
+# the CPU labels every 8th pooled history row (all 2.7 M take it 147 s)
+ASSIGN_HISTORY_STRIDE = 8
+# samples of the profiled run of the clustered slices: their iterations
+# launch ~900 kernels more each, which the profiler's trace pays for
+CLUSTERED_PROFILE_SAMPLES = 4
 EM_RTOL = 1e-6
 # singular-test margins (units of its tolerance) below this are at its edge
 EM_EDGE = 1e3
@@ -378,10 +410,10 @@ def phase_slice(pk_type, models):
     return dict(res, wall_ms=wall_ms, busy_ms=busy_ms)
 
 
-def adapted_sampler(prior, lik):
+def adapted_sampler(prior, lik, **override):
     """bench.py build_sampler(100, 2, 2024, "one", 8192, emit_fixed_only=True)
     in the port, on the card; the GMM backend "auto" is the batched EM at
-    D = 40."""
+    D = 40. `override`: PTConfig fields that differ from it."""
     import torch
 
     from bcm3_tpu_torch.sampler import PTConfig, SamplerPT
@@ -402,13 +434,13 @@ def adapted_sampler(prior, lik):
         device="cuda",
         dtype=torch.float32,
     )
-    return SamplerPT(prior, lik, cfg)
+    return SamplerPT(prior, lik, dataclasses.replace(cfg, **override))
 
 
 def check_run(res, sampler, boundaries):
     import numpy as np
 
-    S, E, D = ADAPTED_SAMPLES, sampler.num_ensembles, sampler.num_variables
+    S, E, D = sampler.config.num_samples, sampler.num_ensembles, sampler.num_variables
     assert res["samples"].shape == (S * E, 1, D), res["samples"].shape
     assert res["adaptation_boundaries"] == boundaries, res["adaptation_boundaries"]
     lpost = res["log_prior"] + res["log_likelihood"]
@@ -419,16 +451,24 @@ def check_run(res, sampler, boundaries):
 
 
 def log_boundaries(name, res, smi):
+    """Each boundary's seconds by part (`SamplerPT._adapt_proposals`), the
+    batched EM's counts where it ran, cluster and block sizes."""
     for i, b in enumerate(res["adaptation_breakdown"]):
+        # the parts this boundary ran (a part it skipped is exactly 0)
+        parts = {k[: -len("_seconds")]: v for k, v in b.items()
+                 if k.endswith("_seconds") and v > 0.0}
+        line = (f"{name} boundary {i + 1}: {sum(parts.values()):.3f} s = "
+                + " + ".join(f"{k} {v:.3f} s" for k, v in parts.items()))
         fs = b["fit_stats"]
-        total = b["gather_seconds"] + b["fit_seconds"] + b["build_seconds"]
-        log(f"{name} boundary {i + 1}: {total:.3f} s = history gather "
-            f"{b['gather_seconds']:.3f} s + EM fits {b['fit_seconds']:.3f} s (of which "
-            f"torch.linalg.eigh {fs.get('eigh_seconds', 0.0):.3f} s) + proposal "
-            f"build {b['build_seconds']:.3f} s; fits per k {fs.get('fits')}, batched EM "
-            f"steps per k {fs.get('em_steps')}, mean E-steps per fit "
-            f"{ {k: round(v, 2) for k, v in fs.get('em_steps_per_fit', {}).items()} }; "
-            f"components per ladder position {b['components']} on {smi}")
+        if fs:
+            line += (f"; EM: torch.linalg.eigh {fs.get('eigh_seconds', 0.0):.3f} s, fits per "
+                     f"k {fs.get('fits')}, batched EM steps per k {fs.get('em_steps')}, mean "
+                     f"E-steps per fit "
+                     f"{ {k: round(v, 2) for k, v in fs.get('em_steps_per_fit', {}).items()} }")
+        if "cluster_sizes" in b:
+            line += f"; cluster sizes {b['cluster_sizes']}"
+        log(line + f"; blocks {len(b['block_sizes'])} of sizes {b['block_sizes']}; components "
+            f"per ladder position {b['components']} on {smi}")
     log(f"{name} run: {res['adaptation_boundaries']} boundaries, "
         f"{res['adaptation_seconds']:.3f} s in them, run {res['elapsed_seconds']:.3f} s")
 
@@ -458,58 +498,163 @@ def ess_stats(res, num_ensembles, seconds):
     }
 
 
-def phase_adapted(models, unadapted, smi):
-    """bench_adapted's protocol on the card (bench.py:232-283)."""
+def adapted_protocol(name, models, smi, profile_samples=NUM_SAMPLES["one"], **override):
+    """bench_adapted's protocol on the card (bench.py:232-283), with
+    `override`'s PTConfig fields: a cold sampler's run() crosses both
+    boundaries, a second sampler's run() gives the warm boundaries, and a
+    third run() of it (the adapted proposals, no boundary) gives the wall
+    per iteration; a fourth run() of `profile_samples` samples under
+    torch.profiler gives the device's busy time. Returns the warm sampler,
+    the third run's result and its state, and the measurements (with the
+    warm run's boundaries)."""
     import numpy as np
     import torch
 
     prior, lik = models["one"]
-    cold = adapted_sampler(prior, lik)
+    cold = adapted_sampler(prior, lik, **override)
     res = cold.run()
     check_run(res, cold, ADAPT_TIMES)
-    log_boundaries("adapted cold", res, smi)
+    log_boundaries(f"{name} cold", res, smi)
     del cold, res
     torch.cuda.empty_cache()
 
-    warm = adapted_sampler(prior, lik)
+    warm = adapted_sampler(prior, lik, **override)
     res = warm.run()
     check_run(res, warm, ADAPT_TIMES)
-    log_boundaries("adapted warm", res, smi)
+    log_boundaries(f"{name} warm", res, smi)
+    boundaries = res["adaptation_breakdown"]
     for p in warm.proposals:
         assert torch.isfinite(p.means).all() and torch.isfinite(p.chols).all()
-    log(f"adapted proposals: components per ladder position "
-        f"{[int(torch.isfinite(lw).sum()) for lw in warm.proposals[0].log_weights]}")
+    log(f"{name} proposals: components per ladder position "
+        f"{[int(torch.isfinite(lw).sum()) for lw in warm.proposals[0].log_weights]}, "
+        f"{len(warm.blocks)} blocks")
 
     # the adapted regime: no boundary left, the proposals from the fits with
     # fresh scales; the profile covers as many iterations as the unadapted
     # slice's (no boundary is left to cross at any length)
     res = warm.run()
+    state = warm.state
     mut = check_run(res, warm, 0)
-    iterations = ADAPTED_SAMPLES * USE_EVERY_NTH
+    samples = warm.config.num_samples
+    iterations = samples * USE_EVERY_NTH
     wall_ms = res["sampling_seconds"] * 1e3 / iterations
-    warm.config = dataclasses.replace(warm.config, num_samples=NUM_SAMPLES["one"])
-    busy_ms, top = profile_sampling(warm, NUM_SAMPLES["one"] * USE_EVERY_NTH)
+    profiled = min(profile_samples, samples)
+    warm.config = dataclasses.replace(warm.config, num_samples=profiled)
+    busy_ms, top = profile_sampling(warm, profiled * USE_EVERY_NTH)
     assert warm.adaptation_boundaries == 0
     E = warm.num_ensembles
     ess = ess_stats(res, E, res["elapsed_seconds"])
     ess_sampling = ess_stats(res, E, res["sampling_seconds"])
     idle = "not measured" if busy_ms is None else f"{1.0 - busy_ms / wall_ms:.4f}"
-    log(f"adapted steady state: {iterations} iterations, wall {wall_ms:.4f} ms per "
-        f"iteration = {E * NUM_CHAINS / wall_ms * 1e3:.1f} evals/s, device busy "
-        f"{busy_ms if busy_ms is not None else 'not measured'} ms per iteration "
-        f"(under the profiler, {NUM_SAMPLES['one'] * USE_EVERY_NTH} iterations), "
-        f"idle share {idle}; unadapted `one`: wall {unadapted['wall_ms']:.4f} ms, busy "
-        f"{unadapted['busy_ms']} ms; on {smi}")
-    for name, ms in top:
-        log(f"  device ms per iteration {ms:.4f}  {name[:120]}")
-    log(f"adapted run: {res['evaluations']} evaluations in {res['elapsed_seconds']:.3f} s = "
+    log(f"{name} steady state: {NUM_CHAINS} x {E} chains, {iterations} iterations, wall "
+        f"{wall_ms:.4f} ms per iteration = {E * NUM_CHAINS / wall_ms * 1e3:.1f} evals/s, "
+        f"device busy {busy_ms if busy_ms is not None else 'not measured'} ms per iteration "
+        f"(under the profiler, {profiled * USE_EVERY_NTH} iterations), idle share {idle}; "
+        f"on {smi}")
+    for kernel, ms in top:
+        log(f"  device ms per iteration {ms:.4f}  {kernel[:120]}")
+    log(f"{name} run: {res['evaluations']} evaluations in {res['elapsed_seconds']:.3f} s = "
         f"{res['evals_per_second']:.1f} evals/s; mutate acceptance by temperature "
         f"{np.round(mut, 4).tolist()}")
-    log(f"adapted ESS per chain: mean {ess['ess_per_chain_mean']:.4f}, worst variable "
-        f"{ess['ess_per_chain_min_var']:.4f} of {ADAPTED_SAMPLES} samples; ESS/s "
+    log(f"{name} ESS per chain: mean {ess['ess_per_chain_mean']:.4f}, worst variable "
+        f"{ess['ess_per_chain_min_var']:.4f} of {samples} samples; ESS/s "
         f"{ess['ess_per_sec']:.1f} (worst variable {ess['ess_min_var_per_sec']:.1f}) over "
         f"the run's {res['elapsed_seconds']:.3f} s, {ess_sampling['ess_per_sec']:.1f} over "
         f"its iterations' {res['sampling_seconds']:.3f} s; on {smi}")
+    return warm, res, state, dict(wall_ms=wall_ms, busy_ms=busy_ms, mutate=mut,
+                                  boundaries=boundaries)
+
+
+def phase_adapted(models, unadapted, smi):
+    """bench_adapted on the card: GMM proposals, the batched EM."""
+    _, res, _, m = adapted_protocol("adapted", models, smi)
+    log(f"adapted against unadapted `one`: wall {m['wall_ms']:.4f} against "
+        f"{unadapted['wall_ms']:.4f} ms, busy {m['busy_ms']} against "
+        f"{unadapted['busy_ms']} ms per iteration")
+    return res
+
+
+def phase_clustered(models, unadapted, smi):
+    """bench_adapted's protocol with clustered proposals; also the card's
+    time of one `assign_batch` of the whole population (two per mutate
+    block). Returns what assign_card_vs_cpu compares: the assigner, the
+    population's positions and the pooled T=1 history of the adapted run."""
+    import torch
+
+    from bcm3_tpu_torch.sampler import spectral
+
+    warm, res, state, m = adapted_protocol(
+        "clustered", models, smi, profile_samples=CLUSTERED_PROFILE_SAMPLES, **CLUSTERED
+    )
+    assert warm._assigner is not None, "no clustering was fitted"
+    assert all(p.clustered for p in warm.proposals)
+    sizes = [b["cluster_sizes"] for b in m["boundaries"]]
+    x = state.x.to(torch.float64)
+    ms = cuda_ms(lambda: spectral.assign_batch(warm._assigner, x), 5)
+    n, D = warm._assigner.scaled_samples.shape
+    log(f"clustered: assign_batch of {len(x)} chains against {n} stored samples in D = {D}, "
+        f"{warm._assigner.num_clusters} clusters: {ms:.3f} ms per call (CUDA events), two "
+        f"per mutate block; adapted iteration wall {m['wall_ms']:.4f} ms, busy "
+        f"{m['busy_ms']} ms, against unadapted `one` {unadapted['wall_ms']:.4f} / "
+        f"{unadapted['busy_ms']} ms; cluster sizes at the warm run's boundaries {sizes}; "
+        f"T=1 mutate acceptance {m['mutate'][-1]:.4f}; on {smi}")
+    count = warm._history_count(state)
+    return dict(assigner=warm._assigner, x=x, pooled=warm._pooled_fixed_history(state, count),
+                assign_ms=ms, res=res)
+
+
+def phase_assign(clustered, smi):
+    """The clustered run's assigner on the card against the same assigner
+    on the CPU, float64: `assign_batch` on the whole population and
+    `assign_history` on every ASSIGN_HISTORY_STRIDE-th row of the pooled
+    T=1 history. A row's label may differ
+    only where the CPU's two best centroid scores are within ASSIGN_MARGIN
+    (relative to the best): there the two devices' rounding decides."""
+    import torch
+
+    from bcm3_tpu_torch.sampler import spectral
+
+    card_a = clustered["assigner"]
+    cpu_a = card_a.to("cpu")
+    for name, fn, rows in (
+        ("assign_batch", spectral.batch_scores, clustered["x"]),
+        ("assign_history", spectral.history_scores,
+         clustered["pooled"][::ASSIGN_HISTORY_STRIDE]),
+    ):
+        t0 = time.perf_counter()
+        card = fn(card_a, rows).cpu()
+        t1 = time.perf_counter()
+        cpu = fn(cpu_a, rows.cpu())
+        t2 = time.perf_counter()
+        apart = card.argmax(-1) != cpu.argmax(-1)
+        top2 = torch.topk(cpu, 2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]) / top2[:, 0].abs()
+        worst = margin[apart].max().item() if apart.any() else 0.0
+        log(f"{name} card vs CPU: {len(rows)} rows, {int(apart.sum())} labelled apart "
+            f"(limit {ASSIGN_SHARE:g} of rows), their largest relative top-two margin "
+            f"{worst:.3e} (limit {ASSIGN_MARGIN:g}); least margin of all rows "
+            f"{margin.min().item():.3e}, max |card - CPU| score {(card - cpu).abs().max().item():.3e}; "
+            f"card {t1 - t0:.3f} s, CPU {t2 - t1:.3f} s; on {smi}")
+        assert int(apart.sum()) <= ASSIGN_SHARE * len(rows), f"{name}: {int(apart.sum())} apart"
+        assert worst < ASSIGN_MARGIN, f"{name}: labelled apart at margin {worst}"
+
+
+def phase_autoblock(models, smi):
+    """clustered_autoblock blocking with clustered proposals, narrowed: the
+    run starts with one block per variable, and each boundary re-blocks
+    the variables from the pooled T=1 history's within-cluster
+    correlations."""
+    warm, res, _, m = adapted_protocol(
+        "autoblock", models, smi, profile_samples=CLUSTERED_PROFILE_SAMPLES, **AUTOBLOCK
+    )
+    blocks = [b["block_sizes"] for b in m["boundaries"]]
+    log(f"autoblock: {warm.num_variables} blocks of 1 before the first boundary; after the "
+        f"warm run's boundaries {[len(b) for b in blocks]} blocks of sizes {blocks}; cluster "
+        f"sizes {[b.get('cluster_sizes') for b in m['boundaries']]}; T=1 mutate acceptance "
+        f"{m['mutate'][-1]:.4f}; on {smi}")
+    assert any(len(b) > 1 for b in blocks), (
+        "autoblock: every boundary merged all variables into one block (every pair's "
+        "within-cluster |correlation| was above the tree's cut at 0.5)")
     return res
 
 
@@ -609,16 +754,16 @@ def phase_em(res, smi):
 
 
 def eigh_backends(hs, smi):
-    """torch.linalg.eigh on the EM's largest batch of one step (k = 13: 7
-    positions x 4 retries x 13 components, 40 x 40 float64 correlation
-    matrices) under each CUDA linear-algebra backend of this torch build,
+    """torch.linalg.eigh on the boundary EM's largest batch of one step
+    (k = 13: the 7 heated positions x 4 retries x 13 components, 40 x 40
+    float64 correlation matrices) under each CUDA linear-algebra backend of this torch build,
     and on the CPU: the eigenvalues agree, and the times say what a
     faster EM would have to beat."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(12)
-    n, D = EM_HISTORIES * 4 * 13, hs[0].shape[1]
+    n, D = (NUM_CHAINS - 1) * 4 * 13, hs[0].shape[1]
     x = rng.normal(size=(n, 3 * D, D)) @ (np.eye(D) + 0.3 * rng.normal(size=(D, D)))
     cov = np.einsum("bni,bnj->bij", x, x)
     sd = np.sqrt(np.einsum("bii->bi", cov))
@@ -741,28 +886,42 @@ def main(workdir):
     gen.manual_seed(3)
     kernels = timed("kernels", phase_kernels, models, gen)
 
-    b1 = poppk_kernels.propagate_intervals_one_compartment
-    b2 = transit_kernels.transit_solve
-    b1.launches = 0
-    b2.launches = 0
-    slices = {k: timed(f"slice_{k}", phase_slice, k, models) for k in ("one", "one_transit")}
-    before_adapted = b1.launches
-    adapted = timed("slice_one_adapted", phase_adapted, models, slices["one"], smi)
-    launches = {"poppk_propagate": b1.launches, "transit_dp5": b2.launches}
-    assert launches["poppk_propagate"] > 0, "the `one` slice never launched B1"
-    assert launches["transit_dp5"] > 0, "the `one_transit` slice never launched B2"
-    assert b1.launches > before_adapted, "the adapted slice never launched B1"
-    log(f"main-path launches: {launches} (the adapted slice's B1: "
-        f"{b1.launches - before_adapted})")
+    counters = {"poppk_propagate": poppk_kernels.propagate_intervals_one_compartment,
+                "transit_dp5": transit_kernels.transit_solve}
+    paths = {}
+
+    def main_path(name, kernel, fn, *args):
+        """A slice of the main path, the launch counts set to 0 just before
+        it and read just after; it must have launched its model's kernel."""
+        for c in counters.values():
+            c.launches = 0
+        out = timed(name, fn, *args)
+        paths[name] = {k: c.launches for k, c in counters.items()}
+        assert paths[name][kernel] > 0, f"{name} never launched {kernel}"
+        return out
+
+    slices = {k: main_path(f"slice_{k}", kernel, phase_slice, k, models)
+              for k, kernel in (("one", "poppk_propagate"), ("one_transit", "transit_dp5"))}
+    adapted = main_path("slice_one_adapted", "poppk_propagate", phase_adapted, models,
+                        slices["one"], smi)
+    clustered = main_path("slice_one_clustered", "poppk_propagate", phase_clustered, models,
+                          slices["one"], smi)
+    timed("assign_card_vs_cpu", phase_assign, clustered, smi)
+    evals = dict({k: v["evals_per_second"] for k, v in slices.items()},
+                 one_adapted=adapted["evals_per_second"],
+                 one_clustered=clustered["res"]["evals_per_second"])
+    del clustered
+    torch.cuda.empty_cache()
+    autoblock = main_path("slice_one_autoblock", "poppk_propagate", phase_autoblock, models, smi)
+    evals["one_autoblock"] = autoblock["evals_per_second"]
+    launches = {k: sum(p[k] for p in paths.values()) for k in counters}
+    log(f"main-path launches: {launches}; per slice {json.dumps(paths)}")
 
     timed("em_card_vs_cpu", phase_em, adapted, smi)
     for pk_type in ("one", "one_transit"):
         timed(f"card_vs_cpu_{pk_type}", phase_oracle, pk_type, workdir)
     log("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phase_times.items()}))
-    log("slice evals/s: " + json.dumps(
-        dict({k: v["evals_per_second"] for k, v in slices.items()},
-             one_adapted=adapted["evals_per_second"])
-    ) + f" on {smi}")
+    log("slice evals/s: " + json.dumps(evals) + f" on {smi}")
 
     meta = {
         "poppk_propagate": ("bcm3_tpu_torch/csrc/poppk_propagate.cu",

@@ -9,7 +9,9 @@ JAX for the other tests):
 
 The batched GMM EM of the adaptation boundary runs on the card in float64
 and is held to the same code on the CPU; a short adapted run crosses its
-boundaries on the card.
+boundaries on the card. The spectral clustering's two assignments run on
+the card against the CPU, and a short clustered_autoblock run re-blocks
+and assigns clusters on the card.
 
 Each kernel is held to its plain PyTorch version on the same inputs:
 - B1: rtol 1e-5 in float32, 1e-12 in float64;
@@ -309,3 +311,68 @@ def test_adapted_run_on_the_card(cuda, tmp_path):
     for r in (res, again):
         assert r["samples"].shape == (12 * 64, 1, vs.num_variables)
         assert np.isfinite(r["log_prior"] + r["log_likelihood"]).all()
+
+
+def test_assignments_on_the_card_match_cpu(cuda):
+    """A spectral clustering fitted on the host, its assignments on the
+    card against the same assigner on the CPU, float64: labels apart only
+    where the CPU's two best centroid scores are within 1e-9 (relative)."""
+    from bcm3_tpu_torch.sampler import spectral
+
+    hist = _clusters(6, n=3000)
+    card = spectral.fit_spectral_clustering(hist, 3, 7, 3, 1000, np.random.default_rng(1), cuda)
+    cpu = card.to("cpu")
+    assert card.scaled_samples.is_cuda and card.num_clusters == 3
+    queries = torch.as_tensor(_clusters(7, n=20_000))
+    for scores in (spectral.batch_scores, spectral.history_scores):
+        got = scores(card, queries.to(cuda)).cpu()
+        ref = scores(cpu, queries)
+        apart = got.argmax(-1) != ref.argmax(-1)
+        top2 = torch.topk(ref, 2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]) / top2[:, 0].abs()
+        assert (margin[apart] < 1e-9).all(), scores.__name__
+        torch.testing.assert_close(got, ref, rtol=1e-9, atol=1e-12)
+    # chunks of rows change no label
+    torch.testing.assert_close(
+        spectral.assign_batch(card, queries.to(cuda), max_bytes=1 << 24),
+        spectral.assign_batch(card, queries.to(cuda)),
+    )
+
+
+def test_clustered_autoblock_run_on_the_card(cuda, tmp_path):
+    """A short PopPK `one` run with clustered proposals and
+    clustered_autoblock: it starts with one block per variable, each
+    boundary clusters the pooled T=1 history on the card and re-blocks;
+    finite samples, clustered proposals, B1 launched."""
+    from bcm3_tpu_torch import Prior, VariableSet
+    from bcm3_tpu_torch.likelihoods import Likelihood
+    from bcm3_tpu_torch.likelihoods.poppk import PopPKLikelihood
+    from bcm3_tpu_torch.likelihoods.poppk_synth import synthesize_trial, write_poppk_prior_xml
+    from bcm3_tpu_torch.sampler import PTConfig, SamplerPT
+
+    P = 4
+    path = str(tmp_path / "prior.xml")
+    write_poppk_prior_xml(path, P, "one")
+    vs = VariableSet.from_xml(path)
+    prior = Prior.from_xml(path, vs)
+    trial, _ = synthesize_trial(num_patients=P, num_timepoints=12, seed=3)
+    pk = PopPKLikelihood(vs, trial, "one", "lapatinib")
+    lik = Likelihood("pop_pk_trajectory", pk.log_prob_batched, model=pk)
+    before = propagate_intervals_one_compartment.launches
+    cfg = PTConfig(
+        num_samples=15, use_every_nth=2, num_chains=4, num_ensembles=256,
+        adapt_proposal_samples=5, adapt_proposal_times=2, emit_fixed_only=True,
+        proposal_type="clustered_covariance", blocking_strategy="clustered_autoblock",
+        seed=5, device="cuda", dtype=torch.float32,
+    )
+    sampler = SamplerPT(prior, lik, cfg)
+    assert len(sampler.blocks) == vs.num_variables
+    res = sampler.run()
+    assert res["adaptation_boundaries"] == 2
+    assert propagate_intervals_one_compartment.launches > before
+    for b in res["adaptation_breakdown"]:
+        assert sum(b["block_sizes"]) == vs.num_variables and min(b["cluster_sizes"]) >= 0
+    assert sampler._assigner is not None and sampler._assigner.centroids.is_cuda
+    assert all(p.clustered and p.means.is_cuda for p in sampler.proposals)
+    assert np.isfinite(res["log_prior"] + res["log_likelihood"]).all()
+    assert res["samples"].shape == (15 * 256, 1, vs.num_variables)

@@ -5,7 +5,8 @@ Both packages build a proposal from the same GMM parameters (shared
 from the JAX keys in the JAX package's own split structure and handed to
 the port, so each function is compared step for step, float64, rtol 1e-12.
 The JAX per-chain functions are vmapped over chain slices of the same
-proposal, as SamplerPT._prop_apply gives them.
+proposal, as SamplerPT._prop_apply gives them. Clustered proposals are
+compared the same way, with the lanes' clusters given to both.
 """
 
 import dataclasses
@@ -27,11 +28,11 @@ RTOL = 1e-12
 F64 = jnp.float64
 
 
-def _gmm_params(seed=0):
+def _gmm_params(seed=0, ks=(1, 2, 2)):
     """Per ladder position: 1, 2 and 2 components (so one is padded)."""
     rng = np.random.default_rng(seed)
     out = []
-    for k in (1, 2, 2):
+    for k in ks:
         means = rng.normal(0.0, 1.0, (k, d))
         a = rng.normal(0.0, 0.5, (k, d, d))
         covs = a @ np.swapaxes(a, 1, 2) + 0.3 * np.eye(d)
@@ -41,7 +42,8 @@ def _gmm_params(seed=0):
 
 
 def _build(proposal_type="gaussian_mixture", seed=0):
-    params = _gmm_params(seed)
+    # a clustered proposal has one component per cluster at every position
+    params = _gmm_params(seed, (3, 3, 3) if proposal_type == "clustered_covariance" else (1, 2, 2))
     jp = jprop.build_block_proposal(
         [JGMM.from_params(*p) for p in params], C, d, F64, proposal_type=proposal_type
     )
@@ -223,3 +225,71 @@ def test_symmetric_proposal_has_zero_ratio():
     _, tp = _build("global_covariance")
     x = torch.zeros((E, L, d), dtype=torch.float64)
     assert torch.equal(tprop.mh_log_ratio_ensemble(tp, x, x + 1.0), torch.zeros(E, L, dtype=torch.float64))
+
+
+def _clustered(nu=0.0):
+    """A clustered proposal (3 clusters), states, clusters (one lane's out
+    of range, clamped by both) and the JAX package's per-lane draws:
+    kz, kg = split(key) (proposal.py:351-361)."""
+    jp, tp = _build("clustered_covariance")
+    jp, tp = dataclasses.replace(jp, t_dof=nu), dataclasses.replace(tp, t_dof=nu)
+    assert tp.clustered and jp.clustered and tp.max_components == 3
+    rng = np.random.default_rng(8)
+    x = rng.normal(0.0, 1.0, (E, L, d))
+    cur = rng.integers(0, 3, (E, L))
+    cur[0, 0] = 5
+    keys = _keys(13)
+    kz, kg = jax.vmap(lambda k: tuple(jax.random.split(k)))(keys)
+    z = jax.vmap(lambda k: jax.random.normal(k, (d,), F64))(kz)
+    gam = jax.vmap(lambda k: jax.random.gamma(k, 0.5 * max(nu, 1.0), dtype=F64))(kg)
+    return jp, tp, x, cur, keys.reshape(E, L, 2), np.array(z).reshape(E, L, d), np.array(gam)
+
+
+@pytest.mark.parametrize("nu", [0.0, 5.0], ids=["gaussian", "t"])
+def test_propose_clustered_ensemble_matches_jax(nu):
+    jp, tp, x, cur, keys, z, gam = _clustered(nu)
+    lower = np.array([-1.5, -np.inf, 0.0])
+    upper = np.array([1.5, np.inf, np.inf])
+    jnb, jsel = jprop.propose_clustered_ensemble(
+        jp, jnp.asarray(x), jnp.asarray(cur), jnp.asarray(lower), jnp.asarray(upper), keys
+    )
+    tnb, tsel = tprop.propose_clustered_ensemble(
+        tp, torch.as_tensor(x), torch.as_tensor(cur), torch.as_tensor(lower),
+        torch.as_tensor(upper), torch.as_tensor(z),
+        torch.as_tensor(gam).reshape(E, L) if nu > 0.0 else None,
+    )
+    np.testing.assert_array_equal(_np(tsel), np.asarray(jsel))
+    assert int(tsel[0, 0]) == 2  # clamped
+    np.testing.assert_allclose(_np(tnb), np.asarray(jnb), rtol=RTOL)
+
+
+def test_mh_log_ratio_clustered_ensemble_matches_jax():
+    """0 within a cluster, the ratio of the two clusters' step densities
+    across clusters; the new clusters differ from the current ones on
+    some lanes."""
+    jp, tp, x, cur, keys, z, _ = _clustered()
+    lower, upper = np.full(d, -np.inf), np.full(d, np.inf)
+    jnb, _ = jprop.propose_clustered_ensemble(
+        jp, jnp.asarray(x), jnp.asarray(cur), jnp.asarray(lower), jnp.asarray(upper), keys
+    )
+    new = np.random.default_rng(9).integers(0, 3, (E, L))
+    ref = np.asarray(jprop.mh_log_ratio_clustered_ensemble(
+        jp, jnp.asarray(x), jnb, jnp.asarray(cur), jnp.asarray(new)
+    ))
+    got = _np(tprop.mh_log_ratio_clustered_ensemble(
+        tp, torch.as_tensor(x), torch.as_tensor(np.array(jnb)), torch.as_tensor(cur),
+        torch.as_tensor(new),
+    ))
+    assert got.shape == (E, L)
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=1e-13)
+    same = np.clip(cur, 0, 2) == new
+    assert (got[same] == 0.0).all() and (got[~same] != 0.0).all() and same.any() and (~same).any()
+
+
+def test_clustered_proposal_needs_one_component_per_cluster():
+    params = _gmm_params(0, (3, 2, 3))
+    with pytest.raises(ValueError, match="cluster index"):
+        tprop.build_block_proposal(
+            [GMM.from_params(*p) for p in params], C, d, torch.float64, "cpu",
+            proposal_type="clustered_covariance",
+        )

@@ -10,15 +10,23 @@
   exchange and the mutate branch.
 - Adaptation boundary: both samplers, given the same history and seed,
   downsample the same rows and build the same proposal arrays (host EM
-  and global covariance to rtol 1e-12, the batched EM to rtol 1e-8).
+  and global covariance to rtol 1e-12, the batched EM to rtol 1e-8); with
+  clustering, Turek and clustered_autoblock blocking and the MFA fit they
+  also fit the same clustering, label the same rows, make the same blocks
+  (rtol 1e-10) and leave the host RNG in the same state. A history that
+  cannot be clustered degrades clustered proposals to one covariance in
+  both. Clustered iterations are stepped like the others, both packages
+  assigning with the same ClusterAssigner.
 - Statistical: short run()s of each package at 64 ensembles, unadapted and
-  adapted under each swap scheme; the per-temperature mutate and exchange
+  adapted under each swap scheme and with clustered proposals; the
+  per-temperature mutate and exchange
   acceptance rates agree within 4 binomial standard errors (the random
   streams differ: threefry vs Philox).
 - The port's output.nc loads through the JAX package's reader with the
   same dims as the JAX package's own.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -42,7 +50,7 @@ from bcm3_tpu_torch.likelihoods.poppk_synth import (
     write_poppk_likelihood_xml,
     write_poppk_prior_xml,
 )
-from bcm3_tpu_torch.sampler import PTConfig, SamplerPT
+from bcm3_tpu_torch.sampler import PTConfig, SamplerPT, spectral
 from bcm3_tpu_torch.sampler.pt import BlockDraws, IterationDraws, MutateDraws
 
 F64 = jnp.float64
@@ -94,22 +102,32 @@ def _jax_mutate_draws(js, key, proposals):
     prior = js.prior.sample(k_prior, (C,)).astype(F64)
     blocks = []
     for bi, block in enumerate(js.blocks):
-        K = proposals[bi].max_components
+        prop = proposals[bi]
+        K, nu = prop.max_components, prop.t_dof
         k_upd, k_prop, k_acc = jax.random.split(jax.random.fold_in(kb_root, bi), 3)
         u_scale = jax.vmap(lambda k: jax.random.uniform(k, dtype=F64))(
             jax.random.split(k_upd, C)
         )
 
         def per_lane(k):
-            kk, kz, _ = jax.random.split(k, 3)
+            # kk, kz, kg = split(key, 3); a clustered proposal draws no
+            # component: kz, kg = split(key) (proposal.py:282, 352)
+            if prop.clustered:
+                kk, (kz, kg) = None, jax.random.split(k)
+            else:
+                kk, kz, kg = jax.random.split(k, 3)
             return (
-                jax.random.gumbel(kk, (K,), F64),
+                jnp.zeros(K, F64) if kk is None else jax.random.gumbel(kk, (K,), F64),
                 jax.random.normal(kz, (len(block),), F64),
+                jax.random.gamma(kg, 0.5 * max(nu, 1.0), dtype=F64),
             )
 
-        gumbel, z = jax.vmap(per_lane)(jax.random.split(k_prop, C))
+        gumbel, z, gamma = jax.vmap(per_lane)(jax.random.split(k_prop, C))
         u_acc = jax.random.uniform(jax.random.fold_in(k_acc, 1), (C,), dtype=F64)
-        blocks.append(BlockDraws(_t(u_scale), _t(gumbel), _t(z), _t(u_acc)))
+        blocks.append(BlockDraws(
+            _t(u_scale), None if prop.clustered else _t(gumbel), _t(z), _t(u_acc),
+            _t(gamma) if nu > 0.0 else None,
+        ))
     return MutateDraws(_t(prior), blocks)
 
 
@@ -146,7 +164,7 @@ def _port_state(jstate):
 def _port_proposal(jp):
     return convert.block_proposal_from_arrays(
         {f: np.asarray(getattr(jp, f)) for f in convert.PROPOSAL_FIELDS},
-        {m: getattr(jp, m) for m in convert.PROPOSAL_META + ("clustered",)},
+        {m: getattr(jp, m) for m in convert.PROPOSAL_META},
         "cpu",
         torch.float64,
     )
@@ -238,17 +256,20 @@ _ADAPT = dict(
 )
 
 
-def _states_with_history(js):
+def _states_with_history(js, degenerate=False):
     """JAX and port states whose history is full: per chain H rows of a
     mixture of four Gaussians (one shared full covariance shape) whose
     spread grows along the ladder. 130 rows per position in D = 16 leave
-    k <= 4 eligible."""
+    k <= 4 eligible. `degenerate`: every T=1 row alike, a history that
+    cannot be clustered."""
     C, D, H = js.num_chains, js.num_variables, js.history_size
     rng = np.random.default_rng(4)
     centers = rng.normal(0.0, 3.0, (4, D))
     spread = 0.5 + 0.3 * (np.arange(C) % js.ladder_size)[:, None, None]
     shape = np.eye(D) + 0.3 * rng.normal(size=(D, D))
     rows = centers[rng.integers(0, 4, (C, H))] + spread * rng.normal(size=(C, H, D)) @ shape
+    if degenerate:
+        rows[js.ladder_size - 1 :: js.ladder_size] = 1.0
     zeros, counts = np.zeros(C), np.zeros(C, np.int32)
     arrays = dict(
         x=np.zeros((C, D)), lprior=zeros, llh=zeros, att_mut=counts, acc_mut=counts,
@@ -280,6 +301,12 @@ def test_downsampled_history_matches_jax(poppk_files):
         np.testing.assert_array_equal(g, h)
 
 
+_CLUSTERED = dict(
+    proposal_type="clustered_covariance", adapt_proposal_max_clustering_samples=500,
+    output_sample_clustering=True,
+)
+
+
 @pytest.mark.parametrize(
     "override,rtol",
     [
@@ -287,8 +314,16 @@ def test_downsampled_history_matches_jax(poppk_files):
         (dict(gmm_fit_backend="device"), 1e-8),
         (dict(proposal_type="global_covariance"), 1e-12),
         (dict(proposal_type="gaussian_mixture_adjustedAIC", gmm_fit_backend="device"), 1e-8),
+        (dict(_CLUSTERED, blocking_strategy="clustered_autoblock"), 1e-10),
+        (dict(_CLUSTERED, proposal_type="global_covariance",
+              blocking_strategy="clustered_autoblock"), 1e-10),
+        (dict(blocking_strategy="Turek", proposal_type="global_covariance"), 1e-10),
+        # few rows, so that the MFA grid stays small
+        (dict(proposal_type="gaussian_mixture_fit_in_r",
+              adapt_proposal_max_history_samples=80), 1e-10),
     ],
-    ids=["host_em", "device_em", "global_covariance", "adjusted_aic"],
+    ids=["host_em", "device_em", "global_covariance", "adjusted_aic",
+         "clustered_autoblock", "covariance_clustered_autoblock", "turek", "fit_in_r"],
 )
 def test_adapt_proposals_matches_jax(poppk_files, override, rtol):
     """The factors are held per (position, component) matrix, normwise:
@@ -296,16 +331,35 @@ def test_adapt_proposals_matches_jax(poppk_files, override, rtol):
     factors whose small entries move by its condition number times the
     EM's last-bit differences. The batched EM's k selection matches on
     this history; on others the two eighs' rounding can flip a singular
-    flag (see tests/test_torch_gmm.py)."""
+    flag (see tests/test_torch_gmm.py). Where the boundary clusters, both
+    fit the same clustering and label the pooled history alike (the
+    clustering dump), and where it re-blocks, both make the same blocks."""
     js, ps = _samplers(poppk_files, **dict(_ADAPT, **override))
     jstate, pstate = _states_with_history(js)
     jstate, jrecord = js._adapt_proposals(jstate)
     pstate, precord = ps._adapt_proposals(pstate)
     assert pstate.hist_adds == int(jstate.hist_adds) == 0
+    assert [b.tolist() for b in ps.blocks] == [np.asarray(b).tolist() for b in js.blocks]
+    assert ps._host_rng.bit_generator.state == js._host_rng.bit_generator.state
+    assert len(ps.clustering_dumps) == len(js.clustering_dumps)
+    for (pi, pdump), (ji, jdump) in zip(ps.clustering_dumps, js.clustering_dumps):
+        assert pi == ji and set(pdump) == set(jdump)
+        for k in jdump:
+            np.testing.assert_array_equal(pdump[k], jdump[k], err_msg=k)
+    if "clustered" in override.get("blocking_strategy", override.get("proposal_type", "")):
+        assert ps._assigner.num_clusters == 4 and len(ps.clustering_dumps) == 1
+        for f in convert.ASSIGNER_FIELDS:
+            np.testing.assert_array_equal(
+                getattr(ps._assigner, f).numpy(), np.asarray(getattr(js._assigner, f)), err_msg=f
+            )
+        sizes = ps.adaptation_timings[-1]["cluster_sizes"]
+        assert sum(sizes) == 8 * js.history_size and min(sizes) > 0
+    if override.get("blocking_strategy") in ("Turek", "clustered_autoblock"):
+        assert 1 < len(ps.blocks) < ps.num_variables  # the history's correlations block
     assert [g.num_components for _, g in precord] == [g.num_components for _, g in jrecord]
     for pp, jp in zip(ps.proposals, js.proposals):
-        assert (pp.t_dof, pp.target_accept, pp.update_rule, pp.symmetric) == (
-            jp.t_dof, jp.target_accept, jp.update_rule, jp.symmetric
+        assert (pp.t_dof, pp.target_accept, pp.update_rule, pp.symmetric, pp.clustered) == (
+            jp.t_dof, jp.target_accept, jp.update_rule, jp.symmetric, jp.clustered
         )
         for f in convert.PROPOSAL_FIELDS:
             a, b = getattr(pp, f).numpy(), np.asarray(getattr(jp, f))
@@ -319,8 +373,113 @@ def test_adapt_proposals_matches_jax(poppk_files, override, rtol):
     # the fits found structure: some position has more than one component
     if override.get("proposal_type") != "global_covariance":
         assert max(p.max_components for p in ps.proposals) > 1
+    else:
+        assert all(p.symmetric for p in ps.proposals)
     timing = ps.adaptation_timings[-1]
-    assert set(timing) >= {"gather_seconds", "fit_seconds", "build_seconds", "components"}
+    assert set(timing) >= {
+        "t1_pull_seconds", "spectral_fit_seconds", "labelling_seconds", "blocking_seconds",
+        "gather_seconds", "fit_seconds", "build_seconds", "components", "block_sizes",
+    }
+
+
+def test_failed_clustering_degrades_to_global_covariance(poppk_files):
+    """A T=1 history without spread fits no clustering: both packages build
+    one covariance per position instead (pt.py:1254-1259), keep no dump
+    and count the clustering iteration."""
+    js, ps = _samplers(poppk_files, **dict(_ADAPT, **_CLUSTERED))
+    jstate, pstate = _states_with_history(js, degenerate=True)
+    js._adapt_proposals(jstate)
+    ps._adapt_proposals(pstate)
+    assert ps._assigner is None and js._assigner is None
+    assert ps.clustering_iteration == js.clustering_iteration == 1
+    assert ps.clustering_dumps == [] == js.clustering_dumps
+    assert "cluster_sizes" not in ps.adaptation_timings[-1]
+    for pp, jp in zip(ps.proposals, js.proposals):
+        assert pp.symmetric and jp.symmetric and not (pp.clustered or jp.clustered)
+        assert pp.update_rule == jp.update_rule == 1
+        for f in ("means", "chols", "log_c"):
+            np.testing.assert_allclose(getattr(pp, f).numpy(), np.asarray(getattr(jp, f)),
+                                       rtol=1e-12, atol=1e-12, err_msg=f)
+    assert ps._host_rng.bit_generator.state == js._host_rng.bit_generator.state
+
+
+@pytest.mark.parametrize("t_dof", [0.0, 5.0], ids=["gaussian", "t"])
+def test_clustered_iterations_step_exact(poppk_files, t_dof):
+    """Clustered iterations (exchange + mutate) from the same state, with
+    the JAX package's clustering carried across: each mutate assigns the
+    current and the proposed positions to clusters and draws the step from
+    the current cluster's covariance. The clustering is fitted by the JAX
+    package on a history of prior draws, so the chains start in several
+    clusters and some moves cross between them."""
+    cfg = dict(_SMALL, proposal_type="clustered_covariance", adapt_proposal_samples=25,
+               adapt_proposal_times=1, sample_clustering_num_clusters=3, proposal_t_dof=t_dof)
+    js, ps = _samplers(poppk_files, **cfg)
+    jstate = js._init_state()
+    C, D, H = js.num_chains, js.num_variables, js.history_size
+    prior_rows = np.asarray(js.prior.sample(jax.random.PRNGKey(3), (C * H,)), np.float32)
+    jstate = dataclasses.replace(
+        jstate, history=jnp.asarray(prior_rows.reshape(C, H * D)), hist_adds=jnp.int32(H)
+    )
+    jstate, _ = js._adapt_proposals(jstate)
+    jprops, jasg = tuple(js.proposals), js._assigner
+    assert jasg is not None and all(p.clustered for p in jprops)
+    pstate = _port_state(jstate)
+    pprops = [_port_proposal(p) for p in jprops]
+    ps._set_blocks(js.blocks)
+    ps._assigner = convert.cluster_assigner_from_arrays(
+        {f: np.asarray(getattr(jasg, f)) for f in convert.ASSIGNER_FIELDS},
+        {m: getattr(jasg, m) for m in convert.ASSIGNER_META}, "cpu",
+    )
+    clusters = set()
+    jax_iteration = jax.jit(lambda carry, key, a: js._iteration(carry, key, a))
+    for it, seed in enumerate((100, 101, 102)):
+        key = jax.random.PRNGKey(seed)
+        draws = _jax_draws(js, key, jprops)
+        clusters |= set(spectral.assign_batch(ps._assigner, pstate.x).tolist())
+        jstate, jprops = jax_iteration((jstate, jprops), key, jasg)
+        pstate, pprops = ps._iteration(pstate, pprops, draws)
+        for f in ("x", "lprior", "llh"):
+            np.testing.assert_allclose(
+                getattr(pstate, f).numpy(), np.asarray(getattr(jstate, f)),
+                rtol=1e-10, err_msg=f"{f}, iteration {it}",
+            )
+        for f in ("att_mut", "acc_mut", "att_exc", "acc_exc"):
+            np.testing.assert_array_equal(
+                getattr(pstate, f).numpy(), np.asarray(getattr(jstate, f)), err_msg=f
+            )
+        for pp, jp in zip(pprops, jprops):
+            np.testing.assert_array_equal(pp.selected.numpy(), np.asarray(jp.selected))
+            np.testing.assert_allclose(pp.scales.numpy(), np.asarray(jp.scales), rtol=1e-12)
+            np.testing.assert_allclose(pp.acc_ema.numpy(), np.asarray(jp.acc_ema), rtol=1e-12)
+    assert len(clusters) > 1
+    assert 0 < int(pstate.acc_mut.sum()) < int(pstate.att_mut.sum())
+
+
+_OPTIONS = [
+    ("proposal_type", p)
+    for p in ("gaussian_mixture", "parametric_mixture", "gaussian_mixture_adjustedAIC",
+              "gaussian_mixture_fit_in_r", "global_covariance", "clustered_covariance")
+] + [("blocking_strategy", b) for b in ("one_block", "no_blocking", "Turek", "clustered_autoblock")]
+
+
+@pytest.mark.parametrize("option,value", _OPTIONS, ids=[v for _, v in _OPTIONS])
+def test_every_jax_option_is_accepted(poppk_files, option, value):
+    """Every proposal type and blocking strategy of the JAX package builds
+    a sampler with the same resolved proposal type, starting blocks and
+    initial proposals; `parametric_mixture` is the legacy alias of
+    `gaussian_mixture` (pt.py:277-279)."""
+    js, ps = _samplers(poppk_files, **dict(_SMALL, **{option: value}))
+    assert ps.proposal_type == js.proposal_type
+    if value in ("parametric_mixture", "gaussian_mixture_fit_in_r"):
+        assert ps.proposal_type == "gaussian_mixture"
+    assert [b.tolist() for b in ps.blocks] == [np.asarray(b).tolist() for b in js.blocks]
+    assert len(ps.proposals) == len(js.proposals)
+    for pp, jp in zip(ps.proposals, js.proposals):
+        for m in convert.PROPOSAL_META:
+            assert getattr(pp, m) == getattr(jp, m), m
+        for f in ("means", "chols", "log_c"):
+            np.testing.assert_allclose(getattr(pp, f).numpy(), np.asarray(getattr(jp, f)),
+                                       rtol=1e-12, err_msg=f)
 
 
 # ---------------------------------------------------------------------------
@@ -494,13 +653,51 @@ def test_adapted_runs_cross_their_boundaries_once(adapted_runs):
         assert res["samples"].shape == (30 * 64, 1, d)
 
 
+@pytest.fixture(scope="module")
+def clustered_runs(light_tailed_files):
+    """A clustered_covariance run of each package with two adaptations,
+    and a second run() of the port's sampler."""
+    js, ps = _samplers(
+        light_tailed_files, seed=23, **dict(_ADAPTED_RUN, proposal_type="clustered_covariance")
+    )
+    return ps, {"jax": js.run(), "port": ps.run()}, ps.run()
+
+
+@pytest.mark.parametrize("move", ["mutate", "exchange"])
+def test_clustered_run_acceptance_matches_jax(clustered_runs, move):
+    """Clustered proposals after two boundaries: per-temperature acceptance
+    of the two packages within 4 standard errors of their difference, as
+    for the other adapted runs."""
+    _, first, _ = clustered_runs
+    pj, sj = _ensemble_rates(first["jax"]["acceptance"], move)
+    pp, sp = _ensemble_rates(first["port"]["acceptance"], move)
+    assert np.all(np.abs(pp - pj) <= 4 * np.sqrt(sj**2 + sp**2) + 1e-12), (move, pj, pp)
+    if move == "mutate":
+        assert 0.0 < pp[-1] < 1.0 and pp[0] == 1.0
+
+
+def test_clustered_run_crosses_its_boundaries_once(clustered_runs):
+    """Both boundaries cluster the pooled T=1 history (four non-empty
+    clusters) and build clustered proposals, the T=0 position's prior
+    fallback padded to one component per cluster; a second run() crosses
+    none and still assigns clusters."""
+    ps, first, second = clustered_runs
+    assert first["jax"]["adaptation_boundaries"] == first["port"]["adaptation_boundaries"] == 2
+    breakdown = first["port"]["adaptation_breakdown"]
+    assert [b["components"][0] for b in breakdown] == [4, 4]
+    assert all(len(b["cluster_sizes"]) == 4 and min(b["cluster_sizes"]) > 0 for b in breakdown)
+    assert all(p.clustered for p in ps.proposals) and ps._assigner.num_clusters == 4
+    assert second["adaptation_boundaries"] == 0
+    for res in (first["port"], second):
+        assert np.isfinite(res["log_prior"] + res["log_likelihood"]).all()
+    assert 0.0 < ps.acceptance_rates(ps.state)[0][-1] < 1.0
+
+
 @pytest.mark.parametrize(
     "override,item",
     [
-        (dict(blocking_strategy="Turek"), "A6"),
-        (dict(proposal_type="clustered_covariance"), "A6"),
-        (dict(blocking_strategy="clustered_autoblock"), "A6"),
         (dict(checkpoint_file="ckpt.npz"), "A7"),
+        (dict(output_proposal_adaptation=True), "A7"),
         (dict(shard_over_devices=True), "A13"),
     ],
 )
