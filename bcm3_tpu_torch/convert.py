@@ -7,7 +7,9 @@ functions build the port's objects on a chosen device and dtype. One
 mutate/exchange step can then start from identical state in both packages.
 A JAX `ClusterAssigner` carries across the same way, so that both packages
 assign clusters with the same fit. The port keeps no PRNG key in its state (its randomness is the sampler's
-`torch.Generator`), so the JAX state's `key` is not read.
+`torch.Generator`), so the JAX state's `key` is not read. The port's own
+checkpoints (io/checkpoint.py) rebuild their objects with the same
+functions.
 """
 
 from __future__ import annotations

@@ -5,14 +5,16 @@ src/likelihoods/LikelihoodFactory.cpp:31-101), configured from the same
 ``likelihood.xml`` schema. A likelihood here is batched by nature: its
 one evaluation entry is ``log_prob_batched(xs (B, D)) -> (B,)``. Only
 ``pop_pk_trajectory`` is ported; every other type is listed in ROADMAP A10.
+`fixed_parameter_likelihood` builds the likelihood of `--bcmopt`.
 """
 
 from __future__ import annotations
 
 import xml.etree.ElementTree as ET
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Sequence
 
+import numpy as np
 import torch
 
 from bcm3_tpu_torch.model.variables import VariableSet
@@ -39,6 +41,26 @@ def _pop_pk(varset: VariableSet, attrs) -> Likelihood:
 
 
 _REGISTRY: Dict[str, Callable[..., Likelihood]] = {"pop_pk_trajectory": _pop_pk}
+
+
+def fixed_parameter_likelihood(
+    full: Likelihood, fixed_values, sampled_positions: Sequence[int]
+) -> Likelihood:
+    """The likelihood of `--bcmopt` (bcm3_tpu/cli.py:250-258): `full` over
+    the stored variable layout, with every variable held at
+    `fixed_values` (a full stored sample) except those at
+    `sampled_positions`, which take the sampled values in order. Batched:
+    the full vector is copied over the batch and the sampled columns
+    written in."""
+    fixed = torch.as_tensor(np.asarray(fixed_values, dtype=np.float64))
+    pos = torch.as_tensor(np.asarray(sampled_positions, dtype=np.int64))
+
+    def log_prob_batched(xs: torch.Tensor) -> torch.Tensor:
+        batch = fixed.to(xs.device, xs.dtype).expand(xs.shape[0], -1).clone()
+        batch[:, pos.to(xs.device)] = xs
+        return full.log_prob_batched(batch)
+
+    return Likelihood("bcmopt", log_prob_batched)
 
 
 def create_likelihood(filename: str, varset: VariableSet) -> Likelihood:

@@ -38,8 +38,17 @@ draw for draw) and, for the stochastic swap schemes, a CPU
 mutate. `_mutate` and `_exchange` take their random numbers as a `draws`
 argument, so a test can feed them the JAX package's own draws.
 
-Not ported yet, and refused with NotImplementedError: checkpoints and
-the adaptation dump (ROADMAP A7) and sharding over devices (A13).
+With `checkpoint_file` set, run() saves the whole sampler state after
+each adaptation and after each segment between boundaries, and resumes
+from that file when it exists (io/checkpoint.py), as the JAX package does
+(bcm3_tpu/sampler/pt.py:1379-1391, 1450-1453, 1568-1569). With
+`output_proposal_adaptation` each boundary's T=1 mixtures and pooled T=1
+history are kept in `adaptation_dumps` for sampler_adaptation.nc. A
+`progress` object (io/progress.py) attached by the caller is told each
+emitted chunk.
+
+Not ported yet, and refused with NotImplementedError: sharding over
+devices (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import os
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
@@ -122,10 +132,14 @@ class PTConfig:
     # keep each boundary's spectral-clustering intermediates in
     # SamplerPT.clustering_dumps (reference: SampleHistoryClustering.cpp:40-56)
     output_sample_clustering: bool = False
-    # JAX-package options that the port refuses until they are ported
+    # save the sampler state to this file at every boundary and segment
+    # end, and resume from it when it exists (io/checkpoint.py)
     checkpoint_file: str = ""
-    shard_over_devices: bool = False
+    # keep each boundary's T=1 mixtures and history in
+    # SamplerPT.adaptation_dumps (reference: SamplerPTChain.cpp:149-166)
     output_proposal_adaptation: bool = False
+    # a JAX-package option that the port refuses until it is ported
+    shard_over_devices: bool = False
 
 
 def temperature_ladder(
@@ -255,6 +269,17 @@ class SamplerPT:
         # output_sample_clustering (reference: SampleHistoryClustering.cpp:40-56)
         self.clustering_dumps: List[tuple] = []
         self.clustering_iteration = 0
+        # (iteration, [(block, GMM of the T=1 position), ...], pooled T=1
+        # history or None) per boundary, when output_proposal_adaptation;
+        # iteration 0 holds the starting proposals (bcm3_tpu/sampler/pt.py:386-392)
+        self.adaptation_dumps: List[tuple] = []
+        if config.output_proposal_adaptation:
+            self.adaptation_dumps.append(
+                (0, [(b, self._fallback_gmm(b)) for b in self.blocks], None)
+            )
+        self.adaptation_iteration = 1
+        # a console progress sink (io/progress.py), attached by the CLI
+        self.progress = None
 
         seed = config.seed if config.seed != 0 else int(time.time_ns() % (2**31))
         self.generator = torch.Generator(device=self.device)
@@ -288,10 +313,6 @@ class SamplerPT:
             raise ValueError(f"Unknown swapping scheme '{cfg.swapping_scheme}'")
         if cfg.gmm_fit_backend not in ("auto", "host", "device"):
             raise ValueError(f"Unknown gmm_fit_backend '{cfg.gmm_fit_backend}'")
-        if cfg.checkpoint_file:
-            refuse("checkpoint_file", "A7")
-        if cfg.output_proposal_adaptation:
-            refuse("output_proposal_adaptation", "A7")
         if cfg.shard_over_devices:
             refuse("shard_over_devices", "A13")
 
@@ -637,7 +658,9 @@ class SamplerPT:
         edt = self.config.emit_dtype or self.dtype
 
         def host(parts):
-            return torch.stack(parts).to("cpu", edt).numpy()
+            t = torch.stack(parts).to("cpu", edt)
+            # numpy has no bfloat16: its rounded values travel as float32
+            return (t.float() if edt == torch.bfloat16 else t).numpy()
 
         return state, proposals, (host(xs), host(lps), host(lls))
 
@@ -944,6 +967,11 @@ class SamplerPT:
                 timing["components"] = [g.num_components for g in ladder_gmms]
         self.proposals = new_proposals
         self.adaptation_timings.append(timing)
+        if cfg.output_proposal_adaptation:
+            if pooled is None:
+                pooled = self._pooled_fixed_history(state, count).cpu().numpy().astype(np.float64)
+            self.adaptation_dumps.append((self.adaptation_iteration, record, pooled))
+        self.adaptation_iteration += 1
         # reset history (reference: SamplerPTChain.cpp:170-171)
         return dataclasses.replace(state, hist_adds=0), record
 
@@ -1017,7 +1045,12 @@ class SamplerPT:
         self.proposals, which only an adaptation changes: a later run()
         starts from the adapted proposals with fresh scales, and adapts
         again only if adaptations remain (self.adaptations_done counts
-        them across runs), as in the JAX package.
+        them across runs), as in the JAX package. With `checkpoint_file`
+        set and present, the run instead continues from the checkpoint's
+        state, proposals, random streams and counters; a due adaptation
+        then runs at the top of the loop, so that the resumed run adapts
+        exactly like an uninterrupted one, and a checkpoint of a finished
+        run gives an empty tail.
 
         Returns a dict with samples (S*E, L_emit, D), log_prior and
         log_likelihood (S*E, L_emit), temperatures, acceptance counts and
@@ -1034,8 +1067,22 @@ class SamplerPT:
         self.adaptation_boundaries = 0
         self.adaptation_timings = []
         adaptation_records = []
-        state = self._init_state()
-        proposals = list(self.proposals)
+        if self.progress is not None:
+            self.progress.start()
+        progress_rows = 0
+
+        emitted = 0
+        if cfg.checkpoint_file and os.path.exists(cfg.checkpoint_file):
+            emitted, state, proposals = self._restore_checkpoint(cfg.checkpoint_file)
+            logger.info(
+                "Resumed from checkpoint %s at %d emitted samples", cfg.checkpoint_file, emitted
+            )
+            for handler in self.sample_handlers:
+                if hasattr(handler, "set_position"):
+                    handler.set_position(emitted * self.num_ensembles)
+        else:
+            state = self._init_state()
+            proposals = list(self.proposals)
 
         # emit in chunks of ~32 MB on the host
         edt = cfg.emit_dtype or self.dtype
@@ -1044,7 +1091,6 @@ class SamplerPT:
         chunk = max(1, (32 << 20) // bytes_per_emit)
 
         all_x, all_lprior, all_llh = [], [], []
-        emitted = 0
         adapting = cfg.adapt_proposal_samples > 0
         # each segment ends with a copy to the host, so its device work is
         # done in here
@@ -1068,6 +1114,8 @@ class SamplerPT:
                     self.adaptation_seconds += time.perf_counter() - t_adapt
                     self.adaptation_boundaries += 1
                     self.adaptations_done += 1
+                    if cfg.checkpoint_file:
+                        self._save_checkpoint(cfg.checkpoint_file, state, proposals, emitted)
                 if adapting and self.adaptations_done < cfg.adapt_proposal_times:
                     aps = cfg.adapt_proposal_samples
                     stop = min(cfg.num_samples, (emitted // aps + 1) * aps)
@@ -1083,7 +1131,21 @@ class SamplerPT:
                     for handler in self.sample_handlers:
                         handler.receive_samples(xs, lps, lls, self.emit_ladder)
                     emitted += m
+                    if self.progress is not None:
+                        # running MAP over the fixed-temperature chains
+                        # (reference: SamplerPT.cpp:223-226)
+                        lpost = lps[:, -1].astype(np.float64) + lls[:, -1]
+                        if lpost.size:
+                            self.progress.notify_max_lposterior(np.max(lpost))
+                        progress_rows += xs.shape[0]
+                        self.progress.update(
+                            progress_rows / max(self.expected_emitted_samples, 1)
+                        )
+                if cfg.checkpoint_file:
+                    self._save_checkpoint(cfg.checkpoint_file, state, proposals, emitted)
         self.state = state
+        if self.progress is not None:
+            self.progress.finish()
 
         sampling = time.perf_counter() - t_sampling - self.adaptation_seconds
         elapsed = time.perf_counter() - t_start
@@ -1101,6 +1163,9 @@ class SamplerPT:
         def host(t):
             return t.cpu().numpy()
 
+        if not all_x:  # resumed from a checkpoint of a finished run
+            L, D = self._emit_L, self.num_variables
+            all_x, all_lprior, all_llh = [np.zeros((0, L, D))], [np.zeros((0, L))], [np.zeros((0, L))]
         return {
             "samples": np.concatenate(all_x, axis=0),
             "log_prior": np.concatenate(all_lprior, axis=0),
@@ -1122,6 +1187,54 @@ class SamplerPT:
             "adaptation_breakdown": self.adaptation_timings,
             "num_ensembles": self.num_ensembles,
         }
+
+    def _save_checkpoint(self, path: str, state: PTState, proposals, emitted: int):
+        """The whole sampler state (io/checkpoint.py): `proposals` are the
+        running segment's, self.proposals those a later run() starts from."""
+        from bcm3_tpu_torch.io.checkpoint import save_checkpoint
+
+        save_checkpoint(
+            path,
+            state,
+            self.proposals,
+            self.blocks,
+            emitted,
+            self.adaptations_done,
+            self.adaptation_iteration,
+            live_proposals=proposals,
+            generators={"device": self.generator, "choice": self._choice_generator},
+            assigner=self._assigner,
+            extra={
+                "host_rng": self._host_rng.bit_generator.state,
+                "clustering_iteration": self.clustering_iteration,
+            },
+        )
+
+    def _restore_checkpoint(self, path: str):
+        """Load a checkpoint into this sampler; returns the emitted count,
+        the state and the running segment's proposals. The history's shape
+        must be this sampler's (chains x history rows x variables)."""
+        from bcm3_tpu_torch.io.checkpoint import load_checkpoint
+
+        p = load_checkpoint(path, self.device, self.dtype)
+        shape = tuple(p["state"].history.shape)
+        expected = (self.num_chains, self.history_size * self.num_variables)
+        if shape != expected:
+            raise ValueError(
+                f"checkpoint {path} holds a history of shape {shape}, this "
+                f"sampler's is {expected} (chains, history rows x variables): it was "
+                "written with another num_chains, num_ensembles, history size or prior"
+            )
+        self.proposals = p["proposals"]
+        self._set_blocks(p["blocks"])
+        self.adaptations_done = p["adaptations_done"]
+        self.adaptation_iteration = p["adaptation_iteration"]
+        self._assigner = p["assigner"]
+        self.generator.set_state(p["generators"]["device"])
+        self._choice_generator.set_state(p["generators"]["choice"])
+        self._host_rng.bit_generator.state = p["extra"]["host_rng"]
+        self.clustering_iteration = p["extra"]["clustering_iteration"]
+        return p["emitted"], p["state"], p["live_proposals"]
 
     def _pool_ensembles(self, arr: np.ndarray) -> np.ndarray:
         """(S, E*L, ...) -> (S*E, L, ...): pool replica samples per

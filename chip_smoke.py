@@ -47,18 +47,31 @@ Phases, each printing its lines before the last:
    blocking and clustered proposals, at 8 x 1024 chains and 30 samples
    (adaptations after 10 and 20): it starts with one block per variable and
    re-blocks at each boundary; the block sizes after each boundary;
-10. the batched EM on the card (float64) against the same code on the CPU,
+10. `cli_one`, the port's CLI at bench width through its in-memory cores
+   (`bcm3_tpu_torch.cli`; this machine has no h5py for the CLI's files): a
+   config.txt parsed by the CLI's parser, the sampler built by its factory
+   over `one` with global-covariance proposals (8 x 8192 chains, 40
+   samples, boundaries after 10 and 20); resume identity (an uninterrupted
+   run U with the console progress indicator, a run A of the first 10
+   samples with a checkpoint, a run B resumed from it to 40: A + B equal U
+   bit for bit), the checkpoint's bytes and the seconds of its saves and
+   restore; the predict core on U's stored second half (B1) and on 32,768
+   `one_transit` prior draws (B2), against U's stored values and the CPU;
+   the importance sampler in batches of 65,536 draws; the bcmopt core at
+   8 x 64 chains with one variable fixed;
+11. the batched EM on the card (float64) against the same code on the CPU,
    on EM_HISTORIES histories of 2000 x 40 rows of the adapted run's T=1
    samples, fit by fit (see phase_em for what may differ and why), and
    torch.linalg.eigh on one EM step's largest batch under each CUDA
    linear-algebra backend and on the CPU;
-11. the port on the card (float32, kernels) against the port on the CPU
+12. the port on the card (float32, kernels) against the port on the CPU
    (float64 tables, plain versions) for 256 prior draws of each model.
 
 The kernels' launch counters are set to 0 just before each slice of the
-main path (phases 4-7 and 9) and read just after it, so the counts show
-that each slice itself went through the kernels. Any failed check raises,
-and the script exits non-zero without printing a result. The last line is
+main path (phases 4-7, 9 and 10) and read just after it, so the counts show
+that each slice itself went through the kernels (`cli_one` through both).
+Any failed check raises, and the script exits non-zero without printing a
+result. The last line is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
 JAX is neither needed nor imported.
 """
@@ -102,6 +115,30 @@ EM_RTOL = 1e-6
 EM_EDGE = 1e3
 # bench.py ess_stats: per-chain ESS over this many ensembles
 ESS_ENSEMBLES = 256
+
+# cli_one: the port's CLI at bench width, `one` with global-covariance
+# proposals (the GMM boundaries take 60-77 s each on the card: ROADMAP B5)
+CLI_CONFIG = """[sampler]
+num_samples=40
+use_every_nth=5
+rngseed=2024
+
+[ptmhsampler]
+num_chains=8
+num_ensembles=8192
+proposal_type=global_covariance
+adapt_proposal_samples=10
+adapt_proposal_times=2
+emit_fixed_only=true
+"""
+CLI_INTERRUPT = 10  # run A's samples: the first boundary
+CLI_FIXED = "mean_excretion"  # the variable that the bcmopt prior leaves out
+CLI_CPU_ROWS = 256
+CLI_TRANSIT_ROWS = 32768
+# the importance sampler keeps a prior draw only within ln(1e10) of the
+# best log-likelihood so far, about 1 in 10^4 draws on `one`: 20,000 kept
+# rows would take ~10^5 batches, so the run stops after this many
+CLI_IS_ROUNDS = 500
 
 # published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
 # the tensor cores, and HBM3 bandwidth
@@ -658,6 +695,163 @@ def phase_autoblock(models, smi):
     return res
 
 
+
+def timed_calls(obj, name, seconds):
+    """Wrap obj.name so that each call appends its seconds to `seconds`."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds.append(time.perf_counter() - t)
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def phase_cli(models, workdir, smi):
+    """The port's CLI at bench width, through its in-memory cores (this
+    machine may lack h5py, which the CLI's files need):
+
+    (a) config.txt parsed by build_arg_parser / options_from_args, each
+        sampler built by the factory (cli.make_sampler) over `one`;
+    (b) resume identity: U runs 40 samples (boundaries after 10 and 20),
+        A the first 10 with a checkpoint file, B resumes A's checkpoint to
+        40; A + B must equal U bit for bit, and B's acceptance counters
+        U's; U carries the console progress indicator;
+    (c) the predict core on U's stored second half (20 x 8192 rows, B1)
+        against U's stored log-likelihoods, and on the second half of
+        65,536 prior draws of `one_transit` (32,768 rows, B2); each
+        against the port on the CPU (float64, plain versions) on
+        CLI_CPU_ROWS rows;
+    (d) the importance sampler from the factory, batches of 65,536 on
+        `one`, for 20,000 samples or CLI_IS_ROUNDS batches;
+    (e) the bcmopt core on U's stored samples at 8 x 64 chains, with a
+        prior that leaves CLI_FIXED at each stored sample's value."""
+    import importlib.util
+    import io
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch import Prior, VariableSet, cli
+    from bcm3_tpu_torch.io.config import build_arg_parser, options_from_args
+
+    cfg = os.path.join(workdir, "config.txt")
+    with open(cfg, "w") as f:
+        f.write(CLI_CONFIG)
+    opts = options_from_args(build_arg_parser().parse_args(["-c", cfg]))
+    prior, lik = models["one"]
+    E, S = int(opts["ptmhsampler.num_ensembles"]), int(opts["sampler.num_samples"])
+
+    # (b) U, A, B
+    progress = io.StringIO()
+    u = cli.make_sampler(opts, prior, lik, progress_stream=progress)
+    t0 = time.perf_counter()
+    full = u.run()
+    u_seconds = time.perf_counter() - t0
+    assert u.adaptations_done == 2 and full["samples"].shape == (S * E, 1, prior.num_variables)
+    lines = [ln.strip() for ln in progress.getvalue().replace("\r", "\n").splitlines()]
+    log(f"cli_one U: {S} samples of {NUM_CHAINS} x {E} chains in {u_seconds:.3f} s, "
+        f"{full['evaluations']} evaluations; progress: {[ln for ln in lines if ln][-1]}")
+
+    ck = os.path.join(workdir, "state.ckpt")
+    saves, restores = [], []
+    a = cli.make_sampler(dict(opts, **{"sampler.num_samples": str(CLI_INTERRUPT),
+                                       "ptmhsampler.checkpoint_file": ck}), prior, lik,
+                         progress_stream=io.StringIO())
+    timed_calls(a, "_save_checkpoint", saves)
+    part1 = a.run()
+    nbytes = os.path.getsize(ck)
+    b = cli.make_sampler(dict(opts, **{"ptmhsampler.checkpoint_file": ck}), prior, lik,
+                         progress_stream=io.StringIO())
+    timed_calls(b, "_save_checkpoint", saves)
+    timed_calls(b, "_restore_checkpoint", restores)
+    part2 = b.run()
+    for k in ("samples", "log_prior", "log_likelihood"):
+        joined = np.concatenate([part1[k], part2[k]])
+        assert np.array_equal(joined, full[k]), f"cli_one: resumed {k} differ from U's"
+    for k, v in full["acceptance"].items():
+        assert np.array_equal(part2["acceptance"][k], v), f"cli_one: resumed {k} differ"
+    assert part2["adaptation_boundaries"] == 2
+    log(f"cli_one resume: A {CLI_INTERRUPT} + B {S - CLI_INTERRUPT} samples equal U's bit for "
+        f"bit (samples, log-priors, log-likelihoods, acceptance counters); checkpoint "
+        f"{nbytes} bytes (history {tuple(b.state.history.shape)} float32); "
+        f"{len(saves)} saves of {min(saves):.3f}-{max(saves):.3f} s, restore "
+        f"{restores[0]:.3f} s; on {smi}")
+    del a, b, part1, part2
+
+    # (c) predict core
+    samples = full["samples"]
+    pred, n_eval, seconds = cli.predict_core(opts, lik, samples)
+    half = np.arange(len(samples) // 2, len(samples))
+    stored = full["log_likelihood"][half, 0].astype(np.float64)
+    got = pred[half, 0]
+    rel = np.abs(got - stored) / np.abs(stored)
+    log(f"cli_one predict one: {n_eval} rows in {seconds:.4f} s = {n_eval / seconds:.1f} evals/s; "
+        f"against U's stored log-likelihoods: {int((got == stored).sum())} equal, max rel "
+        f"{rel.max():.3e} (limit 1e-5); on {smi}")
+    assert rel.max() <= 1e-5
+    picked = half[:: len(half) // CLI_CPU_ROWS][:CLI_CPU_ROWS]
+    rows = torch.as_tensor(samples[picked, 0], dtype=torch.float64)
+    card_vs_cpu("cli_one predict one, card vs CPU", "one", lik, rows, pred[picked, 0])
+
+    tprior, tlik = models["one_transit"]
+    gen = torch.Generator(device=opts["device"]).manual_seed(11)
+    draws = tprior.sample(gen, (2 * CLI_TRANSIT_ROWS,), torch.float32).cpu().numpy()[:, None, :]
+    tpred, t_eval, t_seconds = cli.predict_core(opts, tlik, draws)
+    log(f"cli_one predict one_transit: {t_eval} rows in {t_seconds:.4f} s = "
+        f"{t_eval / t_seconds:.1f} evals/s; on {smi}")
+    picked = slice(CLI_TRANSIT_ROWS, CLI_TRANSIT_ROWS + CLI_CPU_ROWS)
+    rows = torch.as_tensor(draws[picked, 0], dtype=torch.float64)
+    card_vs_cpu("cli_one predict one_transit, card vs CPU", "one_transit", tlik, rows,
+                tpred[picked, 0])
+
+    # (d) importance sampler
+    is_opts = dict(opts, **{"sampler.type": "is", "issampler.batch_size": "65536",
+                            "sampler.num_samples": "20000", "sampler.use_every_nth": "1"})
+    sampler = cli.make_sampler(is_opts, prior, lik)
+    sampler.config = dataclasses.replace(sampler.config, max_rounds=CLI_IS_ROUNDS)
+    res = sampler.run()
+    kept = len(res["weights"])
+    assert kept >= 1 and np.array_equal(res["weights"], np.exp(res["log_likelihood"]))
+    assert np.isfinite(res["log_prior"] + res["log_likelihood"]).all()
+    log(f"cli_one importance sampler: {res['num_evaluations']} draws in "
+        f"{res['elapsed_seconds']:.3f} s = {res['num_evaluations'] / res['elapsed_seconds']:.1f} "
+        f"evals/s, {kept} rows kept of the 20000 asked (log-likelihoods of the kept rows "
+        f"{res['log_likelihood'].min():.2f} to {res['log_likelihood'].max():.2f}); on {smi}")
+
+    # (e) bcmopt core, with a prior that leaves CLI_FIXED at its stored values
+    tree = ET.parse(os.path.join(workdir, "prior_one.xml"))
+    tree.getroot().remove(next(v for v in tree.getroot() if v.get("name") == CLI_FIXED))
+    tree.write(os.path.join(workdir, "prior_bcmopt.xml"))
+    bvs = VariableSet.from_xml(os.path.join(workdir, "prior_bcmopt.xml"))
+    bprior = Prior.from_xml(os.path.join(workdir, "prior_bcmopt.xml"), bvs)
+    bopts = dict(opts, **{"ptmhsampler.num_ensembles": "64", "sampler.num_samples": "10",
+                          "bcmopt.num_samples": "2"})
+    stored = {"samples": samples.astype(np.float64), "variables": prior.varset.names,
+              "variable_transform": prior.varset.transforms, "temperatures": full["temperatures"]}
+    t0 = time.perf_counter()
+    result = cli.bcmopt_core(bopts, bprior, lik, stored)
+    b_seconds = time.perf_counter() - t0
+    assert result["fixed_names"] == [CLI_FIXED]
+    fixed_ix = prior.varset.names.index(CLI_FIXED)
+    maps = np.stack([r["map_sample"] for r in result["rows"]]).astype(np.float64)
+    full_maps = np.insert(maps, fixed_ix, [r["fixed"][0] for r in result["rows"]], axis=1)
+    want = (bprior.log_pdf(torch.as_tensor(maps))
+            + lik.log_prob_batched(torch.as_tensor(full_maps))).numpy()
+    got = np.array([r["map_lposterior"] for r in result["rows"]])
+    # float32 on the card against float64 on the CPU, as card_vs_cpu's `one`
+    assert len(got) == 2 and np.all(np.abs(got - want) <= 1e-3 * np.abs(want)), (got, want)
+    log(f"cli_one bcmopt: {len(got)} samplers of {NUM_CHAINS} x 64 chains, {CLI_FIXED} fixed at "
+        f"the stored samples' values, in {b_seconds:.3f} s; MAP log posteriors {got.tolist()} "
+        f"(the CPU, float64, at the MAP values: {want.tolist()})")
+    h5py = importlib.util.find_spec("h5py") is not None
+    log(f"cli_one files: this phase writes no output.nc, prediction.nc, sampler_adaptation.nc "
+        f"or TSV: the CLI's file ends need h5py, which is {'' if h5py else 'not '}importable "
+        "here; tests/test_torch_cli.py holds those files to the JAX CLI's on the CPU")
+
 def phase_em(res, smi):
     """The batched EM on the card against the same code on the CPU, both
     float64, from the same k-means++ starts (one host seed), on histories
@@ -822,21 +1016,31 @@ def profile_sampling(sampler, iterations):
 
 def phase_oracle(pk_type, workdir):
     """The port on the card against the port on the CPU (plain versions)."""
-    import numpy as np
     import torch
 
     prior, lik = build_model(pk_type, workdir)
     xs = prior.sample(torch.Generator().manual_seed(5), (ORACLE_DRAWS,), torch.float64)
-    cpu = lik.log_prob_batched(xs).numpy()
     card = lik.log_prob_batched(xs.to("cuda", torch.float32)).double().cpu().numpy()
+    card_vs_cpu(f"card vs CPU {pk_type}", pk_type, lik, xs, card)
+
+
+def card_vs_cpu(name, pk_type, lik, xs, card):
+    """The card's log-likelihoods `card` (float64 numpy) at the rows `xs`
+    (a float64 CPU tensor) against the port on the CPU (float64, plain
+    versions), within the tolerances of the model: `one` float32 against
+    float64 on every row, `one_transit` two float32 solves."""
+    import numpy as np
+
+    n = len(xs)
+    cpu = lik.log_prob_batched(xs).numpy()
     # prior draws can put a rate such as ka = 10^(mu + sigma * ndtri(u))
     # beyond float32's range (sigma is half-Cauchy); such a row is -inf in
     # float32 and may be finite in float64, so the finite sets are compared
     # on the rows whose rates fit in float32
     params, _, _ = lik.model._patient_params(xs)
-    fits = np.ones(ORACLE_DRAWS, dtype=bool)
+    fits = np.ones(n, dtype=bool)
     for v in params.values():
-        v = v.reshape(ORACLE_DRAWS, -1).abs().numpy()
+        v = v.reshape(n, -1).abs().numpy()
         fits &= (v < np.finfo(np.float32).max).all(axis=1)
     fin_cpu, fin_card = np.isfinite(cpu), np.isfinite(card)
     mismatched = int((fin_cpu != fin_card)[fits].sum())
@@ -851,14 +1055,14 @@ def phase_oracle(pk_type, workdir):
         # step sequence on a small share of lanes when the last bits differ,
         # so >= 95% of the rows within rtol 5e-3 (as
         # tests/test_poppk_pallas.py:115-134), <= 5% finite-set flips
-        rtol, share, limit = 5e-3, 0.95, ORACLE_DRAWS // 20
+        rtol, share, limit = 5e-3, 0.95, n // 20
     within = float((rel <= rtol).mean())
-    log(f"card vs CPU {pk_type}: {int(both.sum())}/{ORACLE_DRAWS} finite on both, "
+    log(f"{name}: {int(both.sum())}/{n} finite on both, "
         f"{int((~fits).sum())} rows with rates beyond float32, {mismatched} "
         f"finite-set mismatches among the others (limit {limit}), {within:.4f} of "
         f"rows within rtol {rtol} (limit {share}), max rel err {rel.max():.3e}, "
         f"median {np.median(rel):.3e}")
-    assert both.sum() >= ORACLE_DRAWS // 10
+    assert both.sum() >= n // 10
     assert mismatched <= limit
     assert within >= share
 
@@ -890,21 +1094,22 @@ def main(workdir):
                 "transit_dp5": transit_kernels.transit_solve}
     paths = {}
 
-    def main_path(name, kernel, fn, *args):
+    def main_path(name, kernels, fn, *args):
         """A slice of the main path, the launch counts set to 0 just before
-        it and read just after; it must have launched its model's kernel."""
+        it and read just after; it must have launched each of `kernels`."""
         for c in counters.values():
             c.launches = 0
         out = timed(name, fn, *args)
         paths[name] = {k: c.launches for k, c in counters.items()}
-        assert paths[name][kernel] > 0, f"{name} never launched {kernel}"
+        for kernel in kernels:
+            assert paths[name][kernel] > 0, f"{name} never launched {kernel}"
         return out
 
-    slices = {k: main_path(f"slice_{k}", kernel, phase_slice, k, models)
+    slices = {k: main_path(f"slice_{k}", (kernel,), phase_slice, k, models)
               for k, kernel in (("one", "poppk_propagate"), ("one_transit", "transit_dp5"))}
-    adapted = main_path("slice_one_adapted", "poppk_propagate", phase_adapted, models,
+    adapted = main_path("slice_one_adapted", ("poppk_propagate",), phase_adapted, models,
                         slices["one"], smi)
-    clustered = main_path("slice_one_clustered", "poppk_propagate", phase_clustered, models,
+    clustered = main_path("slice_one_clustered", ("poppk_propagate",), phase_clustered, models,
                           slices["one"], smi)
     timed("assign_card_vs_cpu", phase_assign, clustered, smi)
     evals = dict({k: v["evals_per_second"] for k, v in slices.items()},
@@ -912,8 +1117,12 @@ def main(workdir):
                  one_clustered=clustered["res"]["evals_per_second"])
     del clustered
     torch.cuda.empty_cache()
-    autoblock = main_path("slice_one_autoblock", "poppk_propagate", phase_autoblock, models, smi)
+    autoblock = main_path("slice_one_autoblock", ("poppk_propagate",), phase_autoblock, models,
+                          smi)
     evals["one_autoblock"] = autoblock["evals_per_second"]
+    del autoblock
+    torch.cuda.empty_cache()
+    main_path("cli_one", ("poppk_propagate", "transit_dp5"), phase_cli, models, workdir, smi)
     launches = {k: sum(p[k] for p in paths.values()) for k in counters}
     log(f"main-path launches: {launches}; per slice {json.dumps(paths)}")
 

@@ -11,7 +11,9 @@ The batched GMM EM of the adaptation boundary runs on the card in float64
 and is held to the same code on the CPU; a short adapted run crosses its
 boundaries on the card. The spectral clustering's two assignments run on
 the card against the CPU, and a short clustered_autoblock run re-blocks
-and assigns clusters on the card.
+and assigns clusters on the card. A run interrupted at a boundary and
+resumed from its checkpoint equals the uninterrupted run bit for bit on
+the card, and the CLI's predict core on the card agrees with the CPU's.
 
 Each kernel is held to its plain PyTorch version on the same inputs:
 - B1: rtol 1e-5 in float32, 1e-12 in float64;
@@ -376,3 +378,74 @@ def test_clustered_autoblock_run_on_the_card(cuda, tmp_path):
     assert all(p.clustered and p.means.is_cuda for p in sampler.proposals)
     assert np.isfinite(res["log_prior"] + res["log_likelihood"]).all()
     assert res["samples"].shape == (15 * 256, 1, vs.num_variables)
+
+
+def _card_model(tmp_path, pk_type, P=4):
+    """A prior from its XML and the likelihood over an in-memory trial."""
+    from bcm3_tpu_torch import Prior, VariableSet
+    from bcm3_tpu_torch.likelihoods import Likelihood
+    from bcm3_tpu_torch.likelihoods.poppk import PopPKLikelihood
+    from bcm3_tpu_torch.likelihoods.poppk_synth import synthesize_trial, write_poppk_prior_xml
+
+    path = str(tmp_path / f"prior_{pk_type}.xml")
+    write_poppk_prior_xml(path, P, pk_type)
+    vs = VariableSet.from_xml(path)
+    trial, _ = synthesize_trial(num_patients=P, num_timepoints=12, seed=3)
+    pk = PopPKLikelihood(vs, trial, pk_type, "lapatinib")
+    return Prior.from_xml(path, vs), Likelihood("pop_pk_trajectory", pk.log_prob_batched, model=pk)
+
+
+@pytest.mark.parametrize("proposal_type", ["global_covariance", "clustered_covariance"])
+def test_resume_is_identical_on_the_card(cuda, tmp_path, proposal_type):
+    """A run interrupted at its first boundary and resumed from the
+    checkpoint equals the uninterrupted run bit for bit on the card: the
+    device generator's Philox state, the CPU choice generator and the host
+    RNG come back with the state."""
+    from bcm3_tpu_torch.sampler import PTConfig, SamplerPT
+
+    model = _card_model(tmp_path, "one")
+    common = dict(
+        num_samples=12, use_every_nth=2, num_chains=4, num_ensembles=64,
+        adapt_proposal_samples=4, adapt_proposal_times=2, emit_fixed_only=True,
+        proposal_type=proposal_type, seed=5, device="cuda", dtype=torch.float32,
+    )
+    ck = str(tmp_path / "state.ckpt")
+    full = SamplerPT(*model, PTConfig(**common)).run()
+    part1 = SamplerPT(*model, PTConfig(**dict(common, num_samples=4, checkpoint_file=ck))).run()
+    part2 = SamplerPT(*model, PTConfig(**dict(common, checkpoint_file=ck))).run()
+    assert part2["adaptation_boundaries"] == 2
+    for k in ("samples", "log_prior", "log_likelihood"):
+        np.testing.assert_array_equal(np.concatenate([part1[k], part2[k]]), full[k], err_msg=k)
+    for k, v in full["acceptance"].items():
+        np.testing.assert_array_equal(part2["acceptance"][k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("pk_type", ["one", "one_transit"])
+def test_predict_core_on_the_card_matches_cpu(cuda, tmp_path, pk_type):
+    """The CLI's predict core over stored samples: on the card (float32,
+    the kernel) against the CPU (float64, the plain version), on the
+    second half's rows only, to the card-vs-CPU tolerances of
+    test_sampler_runs_through_the_kernels."""
+    from bcm3_tpu_torch import cli
+    from bcm3_tpu_torch.io.config import load_options
+    from bcm3_tpu_torch.io.output import NC_FILL_DOUBLE
+
+    prior, lik = _card_model(tmp_path, pk_type)
+    S, C = 40, 2
+    xs = prior.sample(torch.Generator().manual_seed(7), (S * C,), torch.float64)
+    samples = xs.reshape(S, C, -1).numpy()
+    counter = propagate_intervals_one_compartment if pk_type == "one" else transit_solve
+    before = counter.launches
+    card, n_card, _ = cli.predict_core(load_options(None, {}), lik, samples)
+    assert counter.launches > before and n_card == S // 2 * C
+    cpu, _, _ = cli.predict_core(load_options(None, {"device": "cpu", "dtype": "float64"}),
+                                 lik, samples)
+    assert (card[: S // 2] == NC_FILL_DOUBLE).all() and (cpu[: S // 2] == NC_FILL_DOUBLE).all()
+    card, cpu = card[S // 2:].reshape(-1), cpu[S // 2:].reshape(-1)
+    fin = np.isfinite(card) & np.isfinite(cpu)
+    assert fin.sum() >= 8
+    rel = np.abs(card[fin] - cpu[fin]) / np.abs(cpu[fin])
+    if pk_type == "one":
+        assert rel.max() <= 1e-3
+    else:
+        assert (rel <= 5e-3).mean() >= 0.95

@@ -693,14 +693,7 @@ def test_clustered_run_crosses_its_boundaries_once(clustered_runs):
     assert 0.0 < ps.acceptance_rates(ps.state)[0][-1] < 1.0
 
 
-@pytest.mark.parametrize(
-    "override,item",
-    [
-        (dict(checkpoint_file="ckpt.npz"), "A7"),
-        (dict(output_proposal_adaptation=True), "A7"),
-        (dict(shard_over_devices=True), "A13"),
-    ],
-)
+@pytest.mark.parametrize("override,item", [(dict(shard_over_devices=True), "A13")])
 def test_unported_options_raise(poppk_files, override, item):
     cfg = dict(_SMALL, **override)
     prior_xml = os.path.join(poppk_files, "prior.xml")
