@@ -133,17 +133,21 @@ def run(opts) -> int:
 
     varset, prior, likelihood = _load_model(opts)
     sampler = make_sampler(opts, prior, likelihood)
-    handler = SampleHandlerHDF5(
+    # a run that resumes from its checkpoint writes on into the output file
+    # of the run it continues, which keeps the rows written before
+    checkpoint = getattr(getattr(sampler, "config", None), "checkpoint_file", "")
+    resume = bool(checkpoint) and os.path.exists(checkpoint)
+    with SampleHandlerHDF5(
         os.path.join(output_path, "output.nc"),
         sampler.expected_emitted_samples,
         varset.names,
         varset.transforms,
         getattr(sampler, "emit_ladder", sampler.ladder),
-    )
-    sampler.sample_handlers.append(handler)
-    t0 = time.time()
-    sampler.run()
-    handler.close()
+        resume=resume,
+    ) as handler:
+        sampler.sample_handlers.append(handler)
+        t0 = time.time()
+        sampler.run()
     log.info("Total run time: %.2fs", time.time() - t0)
     write_dumps(output_path, sampler)
     return 0
@@ -247,6 +251,13 @@ def bcmopt_core(opts: Dict[str, str], prior, full_likelihood, stored) -> dict:
     ]
 
     log = logging.getLogger("bcmopt")
+    # every inner sampler runs from scratch: with one checkpoint file for
+    # all of them, each after the first would resume from the first one's
+    # finished run and find no MAP (the JAX CLI does so,
+    # bcm3_tpu/cli.py:259; this is a deliberate departure from it)
+    if opts.get("ptmhsampler.checkpoint_file"):
+        log.warning("bcmopt ignores ptmhsampler.checkpoint_file: each sampler runs from scratch")
+        opts = {k: v for k, v in opts.items() if k != "ptmhsampler.checkpoint_file"}
     rows: List[dict] = []
     for ti in range(len(temps)):
         log.info("Temperature %d (%g)...", ti, temps[ti])

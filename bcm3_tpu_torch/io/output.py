@@ -19,7 +19,8 @@ exactly what R/load.r indexes.)
 
 Copied from the JAX package's bcm3_tpu/io/output.py, with `h5py` imported
 only where a file is opened, so that machines without h5py can import the
-sampler.
+sampler, and with a resume mode: a run resumed from its checkpoint writes
+on into the file of the run it continues (the JAX package rewrites it).
 """
 
 from __future__ import annotations
@@ -43,7 +44,12 @@ class SampleHandlerHDF5:
         variable_transforms: Sequence[int],
         temperatures: np.ndarray,
         sync_every: int = 10,
+        resume: bool = False,
     ):
+        """`resume`: reopen the existing file of an interrupted run (mode
+        "r+") to write on into it, after checking that it holds the
+        variables and the `variable_values` shape this run writes; a file
+        that differs is refused by name."""
         self.filename = filename
         self.sample_count = sample_count
         self.sample_ix = 0
@@ -53,6 +59,20 @@ class SampleHandlerHDF5:
 
         D = len(variable_names)
         C = len(temperatures)
+        if resume:
+            self._file = h5py.File(filename, "r+")
+            self._g = self._file["samples"]
+            shape = self._g["variable_values"].shape
+            names = [v.decode() if isinstance(v, bytes) else str(v)
+                     for v in self._g["variable"][()]]
+            if shape != (sample_count, C, D) or names != list(variable_names):
+                self._file.close()
+                raise ValueError(
+                    f"cannot resume into {filename}: it holds variables {names} and "
+                    f"variable_values of shape {shape}, this run writes "
+                    f"{list(variable_names)} and {(sample_count, C, D)}"
+                )
+            return
         f = h5py.File(filename, "w")
         g = f.create_group("samples")
         g.create_dataset(

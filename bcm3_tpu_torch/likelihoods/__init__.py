@@ -3,9 +3,12 @@
 Counterpart of bcm3_tpu/likelihoods/__init__.py (reference:
 src/likelihoods/LikelihoodFactory.cpp:31-101), configured from the same
 ``likelihood.xml`` schema. A likelihood here is batched by nature: its
-one evaluation entry is ``log_prob_batched(xs (B, D)) -> (B,)``. Only
-``pop_pk_trajectory`` is ported; every other type is listed in ROADMAP A10.
-`fixed_parameter_likelihood` builds the likelihood of `--bcmopt`.
+one evaluation entry is ``log_prob_batched(xs (B, D)) -> (B,)``. Ported:
+the analytic targets (``banana``, ``circular``, ``multimodal_gaussians``,
+``truncated_t``, ``dummy``) and ``pop_pk_trajectory``; every other type
+of the JAX package raises NotImplementedError naming its ROADMAP item
+(`_UNPORTED`). `fixed_parameter_likelihood` builds the likelihood of
+`--bcmopt`.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Any, Callable, Dict, Sequence
 import numpy as np
 import torch
 
+from bcm3_tpu_torch.likelihoods import analytic
 from bcm3_tpu_torch.model.variables import VariableSet
 
 
@@ -33,6 +37,73 @@ class Likelihood:
     model: Any = None  # backing model object (e.g. PopPKLikelihood)
 
 
+def parse_vector(s: str) -> np.ndarray:
+    """Parse 'a;b;c' vectors (reference: src/utils/VectorUtils.cpp:255)."""
+    return np.array([float(v) for v in s.split(";") if v.strip() != ""])
+
+
+def parse_matrix(s: str) -> np.ndarray:
+    """Parse 'a,b;c,d' row-major matrices (reference: src/utils/VectorUtils.cpp)."""
+    rows = [r for r in s.split(";") if r.strip() != ""]
+    return np.array([[float(v) for v in r.split(",")] for r in rows])
+
+
+# attribute parsing and errors as bcm3_tpu/likelihoods/__init__.py:104-156
+
+
+def _banana(varset: VariableSet, attrs) -> Likelihood:
+    dim = int(attrs.get("dimension", varset.num_variables))
+    if dim != varset.num_variables:
+        raise ValueError("Banana dimension does not match prior variable count")
+    sd1 = float(attrs["sd1"])
+    sd2 = float(attrs["sd2"])
+    if sd1 <= 0 or sd2 <= 0:
+        raise ValueError("Standard deviations must be positive")
+    return Likelihood("banana", analytic.make_banana(dim, sd1, sd2), attrs=attrs)
+
+
+def _circular(varset: VariableSet, attrs) -> Likelihood:
+    dim = int(attrs.get("dimension", varset.num_variables))
+    if dim != varset.num_variables:
+        raise ValueError("Circular dimension does not match prior variable count")
+    radius = float(attrs.get("radius", 2.0))
+    offset = float(attrs.get("offset", 3.5))
+    # the reference example file contains width="=0.1"; boost's lexical cast
+    # fails silently into the default there, so strip stray '=' prefixes
+    width = float(str(attrs.get("width", 0.1)).lstrip("="))
+    return Likelihood(
+        "circular", analytic.make_circular(dim, radius, offset, width), attrs=attrs
+    )
+
+
+def _multimodal(varset: VariableSet, attrs) -> Likelihood:
+    if varset.num_variables != 2:
+        raise ValueError("multimodal_gaussians requires exactly 2 variables")
+    return Likelihood(
+        "multimodal_gaussians", analytic.make_multimodal_gaussians(), attrs=attrs
+    )
+
+
+def _truncated_t(varset: VariableSet, attrs) -> Likelihood:
+    dim = int(attrs["dimensions"])
+    if dim != varset.num_variables:
+        raise ValueError("truncated_t dimensions do not match prior variable count")
+    k = int(attrs["num_clusters"])
+    mus = [parse_vector(attrs[f"mu{i+1}"]) for i in range(k)]
+    sigmas = [parse_matrix(attrs[f"sigma{i+1}"]) for i in range(k)]
+    nus = parse_vector(attrs["nus"])
+    weights = parse_vector(attrs["weights"])
+    if len(nus) != k or len(weights) != k:
+        raise ValueError("Inconsistent number of nus/weights")
+    return Likelihood(
+        "truncated_t", analytic.make_truncated_t(mus, sigmas, nus, weights), attrs=attrs
+    )
+
+
+def _dummy(varset: VariableSet, attrs) -> Likelihood:
+    return Likelihood("dummy", analytic.make_dummy(), attrs=attrs)
+
+
 def _pop_pk(varset: VariableSet, attrs) -> Likelihood:
     from bcm3_tpu_torch.likelihoods.poppk import create_poppk_likelihood
 
@@ -40,7 +111,28 @@ def _pop_pk(varset: VariableSet, attrs) -> Likelihood:
     return Likelihood("pop_pk_trajectory", pk.log_prob_batched, attrs=attrs, model=pk)
 
 
-_REGISTRY: Dict[str, Callable[..., Likelihood]] = {"pop_pk_trajectory": _pop_pk}
+_REGISTRY: Dict[str, Callable[..., Likelihood]] = {
+    "banana": _banana,
+    "circular": _circular,
+    "multimodal_gaussians": _multimodal,
+    "truncated_t": _truncated_t,
+    "dummy": _dummy,
+    "pop_pk_trajectory": _pop_pk,
+}
+
+# the JAX package's other types and the ROADMAP item that ports each
+_UNPORTED = {
+    "pharmaco_single": "A10",
+    "pharmaco_population": "A10",
+    "pharmacokinetic_trajectory": "A10",
+    "ODE": "A10",
+    "dll": "A10",
+    "cell_cycle_marker": "A10",
+    "mitosis_time_estimation": "A10",
+    "incucyte_population": "A10",
+    "cell_population": "A11",
+    "fISA": "A12",
+}
 
 
 def fixed_parameter_likelihood(
@@ -73,9 +165,11 @@ def create_likelihood(filename: str, varset: VariableSet) -> Likelihood:
     attrs: Dict[str, Any] = dict(root.attrib)
     attrs["_xml_path"] = filename
     attrs["_xml_root"] = root
-    if ltype not in _REGISTRY:
+    if ltype in _UNPORTED:
         raise NotImplementedError(
-            f"likelihood type '{ltype}' is not ported yet (ROADMAP A10); "
+            f"likelihood type '{ltype}' is not ported yet (ROADMAP {_UNPORTED[ltype]}); "
             f"ported: {sorted(_REGISTRY)}"
         )
+    if ltype not in _REGISTRY:
+        raise ValueError(f"Unknown likelihood type '{ltype}'; available: {sorted(_REGISTRY)}")
     return _REGISTRY[ltype](varset, attrs)

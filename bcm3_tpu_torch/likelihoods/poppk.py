@@ -3,21 +3,32 @@
 Counterpart of bcm3_tpu/likelihoods/poppk.py (reference:
 src/likelihoods/LikelihoodPopPKTrajectory.cpp). The whole (chains x
 patients) population is scored in one batched call, `log_prob_batched`,
-which is the only evaluation entry:
+which is the only evaluation entry. The central compartment comes from
+one of four paths, by structural model:
 
 - `one`: kernel B1 (ops/poppk_kernels.py) runs the exact dosing-interval
   recurrence, then every observation is propagated in closed form from the
   start of its interval (bcm3_tpu/likelihoods/poppk.py:763-800);
+- `two` and the biphasic models (`one_biphasic_uptake` and
+  `two_biphasic_uptake` both mean the two-compartment biphasic model, the
+  reference's quirk): the same recurrence in closed form, batched over
+  (chains, patients) with a loop over the K intervals (`_simulate_linear`,
+  bcm3_tpu/likelihoods/poppk.py:397-469);
 - `one_transit`: kernel B2 (ops/transit_kernels.py) runs the budgeted DP5
   solve over the merged stop grid in float32, as the JAX package's Pallas
-  path does (bcm3_tpu/likelihoods/poppk.py:646-712).
+  path does (bcm3_tpu/likelihoods/poppk.py:646-712);
+- `two_transit`: the budgeted DP5 solve of ode/dp5.py in the dtype of the
+  parameters over lanes (chain, patient), as the JAX package's XLA path
+  does (bcm3_tpu/likelihoods/poppk.py:500-613).
 
-Both end in the same scoring: a Student-t(nu=4) residual with additive +
+All end in the same scoring: a Student-t(nu=4) residual with additive +
 proportional sd over the (B, P, T) observation grid, the double-where for
 unscored entries, and -inf for any NaN inside the simulated window
 (reference: LikelihoodPopPKTrajectory.cpp:400-424). The host-side tables
 (dosing schedule, observation -> interval map, transit grid) are built
-exactly as in the JAX package. Other `pk_type`s are not ported yet.
+exactly as in the JAX package. `simulate_trajectories` and
+`simulate_states` give the trajectories themselves (every model through
+`_simulate_linear` or the DP5 path, as the JAX package's do).
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from bcm3_tpu_torch.model.variables import (
     VariableSet,
 )
 from bcm3_tpu_torch.ode import linear_pk
+from bcm3_tpu_torch.ode.dp5 import solve_at_times_budget
 from bcm3_tpu_torch.ops.poppk_kernels import propagate_intervals_one_compartment
 from bcm3_tpu_torch.ops.transit_kernels import transit_solve
 
@@ -50,7 +62,7 @@ DRUG_MOLWEIGHTS = {
 
 _LOG_TNU4_C = -0.9808292530117262  # log(Gamma(2.5)/(Gamma(2) sqrt(4 pi)))
 
-PORTED_PK_TYPES = ("one", "one_transit")
+TRANSIT_TYPES = ("one_transit", "two_transit")
 
 
 def log_pdf_tnu4(x, mu, sigma):
@@ -220,15 +232,16 @@ class PopPKLikelihood:
         }
         if pk_type not in aliases:
             raise ValueError(f"Invalid PK model type '{pk_type}'")
-        if aliases[pk_type] not in PORTED_PK_TYPES:
-            raise NotImplementedError(
-                f"pk_type '{pk_type}' is not ported yet (ROADMAP A8); "
-                f"ported: {PORTED_PK_TYPES}"
-            )
         self.pk_type = aliases[pk_type]
-        self.n_states = 2
+        self.n_states = 2 if self.pk_type in ("one", "one_transit") else 3
         # reference: LikelihoodPopPKTrajectory.cpp:102-119
-        self.num_pk_params = {"one": 4, "one_transit": 6}[self.pk_type]
+        self.num_pk_params = {
+            "one": 4,
+            "two": 6,
+            "two_biphasic": 7,
+            "one_transit": 6,
+            "two_transit": 8,
+        }[self.pk_type]
         self.fixed_vod = fixed_vod
         self.fixed_periphery_fwd = fixed_periphery_fwd
         self.fixed_periphery_bwd = fixed_periphery_bwd
@@ -246,9 +259,22 @@ class PopPKLikelihood:
 
         self.sd_ix = varset.index_of("standard_deviation")
         self._named_ix = {}
-        for name in ("n_transit", "mean_transit_time"):
+        for name in (
+            "n_transit",
+            "mean_transit_time",
+            "biphasic_uptake_time",
+            "mean_absorption2",
+        ):
             if name in varset.names:
                 self._named_ix[name] = varset.index_of(name)
+        needs = {
+            "two_biphasic": ("biphasic_uptake_time", "mean_absorption2"),
+            "one_transit": ("n_transit", "mean_transit_time"),
+            "two_transit": ("n_transit", "mean_transit_time"),
+        }.get(self.pk_type, ())
+        for name in needs:
+            if name not in self._named_ix:
+                raise ValueError(f"pk_type '{pk_type}' needs a prior variable named '{name}'")
 
         self.simulate_until = _simulate_until(trial)
         self.conversion_base = 1e6 / DRUG_MOLWEIGHTS[drug]
@@ -290,8 +316,15 @@ class PopPKLikelihood:
         # the t=0 dose is unconditional (reference: initial_conditions[0] = dose,
         # LikelihoodPopPKTrajectory.cpp:369-374 — no CheckGiveTreatment at t=0)
         self.initial_dose = trial.dose.copy()
+        # biphasic: the ka1->ka2 switch only happens in intervals whose
+        # starting dose was actually given (reference: TreatmentCallbackBiphasic
+        # leaves biphasic_switch false over skipped intervals)
+        self.interval_start_given = np.concatenate(
+            [np.ones((P, 1), dtype=bool), self.dose_amount[:, : self.K - 1] > 0],
+            axis=1,
+        )  # (P, K): interval k starts with a dose?
 
-        if self.pk_type == "one_transit":
+        if self.pk_type in TRANSIT_TYPES:
             self._prepare_transit_grid()
         self._tensors = {}
 
@@ -340,7 +373,12 @@ class PopPKLikelihood:
                 "observed": f(self.trial.observed),
                 "obs_mask": f(self.obs_mask, torch.bool),
                 "window_mask": f(self.window_mask, torch.bool),
+                "start_given": f(self.interval_start_given, torch.bool),
             }
+            if self.pk_type in TRANSIT_TYPES:
+                tb["grid"] = f(self.tr_grid)
+                tb["amt"] = f(np.where(self.tr_is_dose, self.tr_dose_amt, 0.0))
+                tb["obs_pos"] = f(self.tr_obs_pos, torch.long)
             if self.pk_type == "one_transit":
                 f32 = torch.float32
                 tb["tr_grid"] = f(self.tr_grid, f32)
@@ -348,7 +386,6 @@ class PopPKLikelihood:
                     np.where(self.tr_is_dose, self.tr_dose_amt, 0.0), f32
                 )
                 tb["tr_dose0"] = f(self.initial_dose, f32)
-                tb["tr_obs_pos"] = f(self.tr_obs_pos, torch.long)
             self._tensors[key] = tb
         return self._tensors[key]
 
@@ -383,7 +420,14 @@ class PopPKLikelihood:
             10.0, xs[:, 2:3] + xs[:, npk + 1 : npk + 2] * ndtri(u_elim)
         ) / vod[:, None]
         params = {"ka": ka, "ke": ke, "vod": vod, "kel": kel}
-        if self.pk_type == "one_transit":
+        if self.n_states == 3:
+            if not np.isfinite(self.fixed_periphery_fwd):
+                params["kpf"] = self._transform(4, xs[:, 4])
+                params["kpb"] = self._transform(5, xs[:, 5])
+            else:
+                params["kpf"] = torch.full_like(ke, float(self.fixed_periphery_fwd))
+                params["kpb"] = torch.full_like(ke, float(self.fixed_periphery_bwd))
+        if self.pk_type in TRANSIT_TYPES:
             nt_ix = self._named_ix["n_transit"]
             mt_ix = self._named_ix["mean_transit_time"]
             n_transit = self._transform(nt_ix, xs[:, nt_ix])
@@ -391,6 +435,14 @@ class PopPKLikelihood:
             params["k_transit"] = (n_transit + 1.0) / self._transform(
                 mt_ix, xs[:, mt_ix]
             )
+        if self.pk_type == "two_biphasic":
+            bt_ix = self._named_ix["biphasic_uptake_time"]
+            a2_ix = self._named_ix["mean_absorption2"]
+            switch = self._transform(bt_ix, xs[:, bt_ix])
+            interval = torch.as_tensor(self.trial.dosing_interval).to(xs)
+            # reference clamps to interval - 1e-2 (cpp:305-307)
+            params["switch_time"] = torch.minimum(switch[:, None], interval - 1e-2)  # (B, P)
+            params["ka2"] = self._transform(a2_ix, xs[:, a2_ix])
         sd = self._transform(self.sd_ix, xs[:, self.sd_ix])
         sd2 = self._transform(self.sd_ix + 1, xs[:, self.sd_ix + 1])
         return params, sd, sd2
@@ -450,25 +502,162 @@ class PopPKLikelihood:
             min_dt=1e-5,
         )
         S = self.tr_grid.shape[1]
-        T = tb["tr_obs_pos"].shape[1]
+        T = tb["obs_pos"].shape[1]
         central = central.reshape(B, P, S)
-        central_obs = central.gather(2, tb["tr_obs_pos"][None].expand(B, P, T))
+        central_obs = central.gather(2, tb["obs_pos"][None].expand(B, P, T))
         central_obs = torch.where(
             ok.reshape(B, P, 1), central_obs, float("nan")
         )
         return central_obs.to(dtype)
 
+    def _simulate_linear(self, p, tb, full_state=False):
+        """Every linear model in closed form (bcm3_tpu/likelihoods/poppk.py
+        `_simulate_linear`, batched over (chains, patients)): the state at
+        the start of each of the K dosing intervals, then each observation
+        propagated from the start of its interval. Returns the central
+        compartment (B, P, T) in mg, or with full_state the states (B, P,
+        T, n)."""
+        ka, kel = p["ka"], p["kel"]  # (B, P)
+        B, P = ka.shape
+        n = self.n_states
+
+        def col(name):  # a per-chain rate (B,) as (B, 1)
+            return p[name][:, None] if name in p else None
+
+        ke, kpf, kpb, ka2 = col("ke"), col("kpf"), col("kpb"), col("ka2")
+        biphasic = self.pk_type == "two_biphasic"
+        if biphasic:
+            # (B, P, K): no ka1 phase in intervals without a starting dose
+            switch_eff = torch.where(tb["start_given"], p["switch_time"][:, :, None], 0.0)
+
+        def prop(y, dt, sw, ka, ka2, ke, kel, kpf, kpb):
+            if biphasic:
+                return linear_pk.propagate_biphasic(y, dt, sw, ka, ka2, ke, kel, kpf, kpb)
+            return linear_pk.propagate(y, dt, ka, ke, kel, kpf, kpb)
+
+        y = torch.zeros(B, P, n, dtype=ka.dtype, device=ka.device)
+        y[..., 0] = tb["initial_dose"]
+        starts = []
+        for k in range(self.K):
+            starts.append(y)
+            sw = switch_eff[:, :, k] if biphasic else None
+            y = prop(y, tb["interval"], sw, ka, ka2, ke, kel, kpf, kpb)
+            y = torch.cat([(y[..., 0] + tb["dose_amount"][:, k])[..., None], y[..., 1:]], dim=-1)
+        ys = torch.stack(starts, dim=2)  # (B, P, K, n): state at each interval start
+
+        T = tb["obs_interval"].shape[1]
+        obs_k = tb["obs_interval"][None].expand(B, P, T)
+        y_base = ys.gather(2, obs_k[..., None].expand(B, P, T, n))
+        sw = switch_eff.gather(2, obs_k) if biphasic else None
+
+        def cell(v):  # (B, 1) or (B, P) as (B, 1 or P, 1)
+            return None if v is None else v[:, :, None]
+
+        y_obs = prop(y_base, tb["obs_offset"], sw, cell(ka), cell(ka2), cell(ke), cell(kel),
+                     cell(kpf), cell(kpb))
+        return y_obs if full_state else y_obs[..., 1]
+
+    def _simulate_transit(self, p, tb, full_state=False):
+        """Transit models through the budgeted DP5 solve of ode/dp5.py in
+        the parameters' dtype (bcm3_tpu/likelihoods/poppk.py
+        `_simulate_transit`), over lanes (chain, patient), lane b * P + j
+        being patient j. Augmented state [gut, central, (peripheral),
+        last_treatment, dose]. Returns the central compartment (B, P, T),
+        failed lanes NaN, or with full_state the augmented states (B, P,
+        T, n + 2)."""
+        B, P = p["ka"].shape
+        n = self.n_states
+        two_comp = n == 3
+        pat = torch.arange(P, device=p["ka"].device).repeat(B)
+
+        def lane(v):
+            return (v[:, None] if v.dim() == 1 else v).expand(B, P).reshape(B * P)
+
+        zero = torch.zeros_like(p["ke"])
+        ka, ke, kel, kpf, kpb, k_transit, n_transit = (
+            lane(v)
+            for v in (p["ka"], p["ke"], p["kel"], p.get("kpf", zero), p.get("kpb", zero),
+                      p["k_transit"], p["n_transit"])
+        )
+        # the per-lane constants of the right-hand side, made once per solve
+        # (the same operations as inside it: Stirling's log-factorial of the
+        # Erlang-shaped transit inflow, reference:
+        # LikelihoodPopPKTrajectory.cpp:574-596)
+        log_nfac = (
+            0.9189385332046727
+            + (n_transit + 0.5) * torch.log(n_transit)
+            - n_transit
+            + torch.log(1.0 + 1.0 / (12.0 * n_transit))
+        )
+        ka_ke = ka + ke
+
+        def deriv(t, y, _args):
+            t_since = torch.clamp(t - y[:, n], min=0.0)
+            log_t = torch.log(torch.clamp(k_transit * t_since, min=1e-300))
+            transit = torch.exp(n_transit * log_t - k_transit * t_since - log_nfac)
+            transit = k_transit * transit * y[:, n + 1]
+            dgut = transit - ka_ke * y[:, 0]
+            if two_comp:
+                dcen = ka * y[:, 0] - kel * y[:, 1] - kpf * y[:, 1] + kpb * y[:, 2]
+                dper = kpf * y[:, 1] - kpb * y[:, 2]
+                rest = (dcen, dper)
+            else:
+                rest = (ka * y[:, 0] - kel * y[:, 1],)
+            z = torch.zeros_like(dgut)
+            return torch.stack([dgut, *rest, z, z], dim=-1)
+
+        S = self.tr_grid.shape[1]
+        amt_flat = tb["amt"].reshape(-1)
+
+        def event(i, t, y, _args):
+            # at dose events: last_treatment <- t, dose level <- amount
+            # (only where the dose is given: amount > 0)
+            amt = amt_flat[pat * S + i]
+            fire = amt > 0
+            return torch.cat(
+                [y[:, :n], torch.where(fire, t, y[:, n])[:, None],
+                 torch.where(fire, amt, y[:, n + 1])[:, None]],
+                dim=-1,
+            )
+
+        y0 = torch.zeros(B * P, n + 2, dtype=p["ka"].dtype, device=p["ka"].device)
+        # the t=0 dose enters through the transit chain: last_treatment 0,
+        # dose level the initial dose (reference: initial gut = 0)
+        y0[:, n + 1] = tb["initial_dose"][pat]
+        # tolerances as the reference configures them: rel 1e-6, abs =
+        # minimum dose * 1e-6 (LikelihoodPopPKTrajectory.cpp:238)
+        res = solve_at_times_budget(
+            deriv,
+            y0,
+            tb["grid"][pat],
+            event_fn=event,
+            rtol=1e-6,
+            atol=float(np.min(self.trial.dose)) * 1e-6,
+            total_trips=self.solver_trips,
+            min_dt=1e-5,
+        )
+        ys = res.ys.reshape(B, P, S, n + 2)
+        T = tb["obs_pos"].shape[1]
+        out = ys.gather(2, tb["obs_pos"][None, :, :, None].expand(B, P, T, n + 2))
+        return out if full_state else out[..., 1]
+
+    def _central(self, p, tb, dtype):
+        if self.pk_type == "one":
+            return self._central_one(p, tb)
+        if self.pk_type == "one_transit":
+            return self._central_transit(p, tb, dtype)
+        if self.pk_type == "two_transit":
+            return self._simulate_transit(p, tb)
+        return self._simulate_linear(p, tb)
+
     def log_prob_batched(self, xs: torch.Tensor) -> torch.Tensor:
         """Log-likelihood of every row of xs (B, D); returns (B,).
 
-        Runs on xs's device in xs's dtype (the transit solve itself always
-        in float32)."""
+        Runs on xs's device in xs's dtype (the `one_transit` solve itself
+        always in float32)."""
         tb = self._tables(xs.device, xs.dtype)
         p, sd, sd2 = self._patient_params(xs)
-        if self.pk_type == "one_transit":
-            central = self._central_transit(p, tb, xs.dtype)
-        else:
-            central = self._central_one(p, tb)
+        central = self._central(p, tb, xs.dtype)
 
         # mg -> nM conversion (reference: cpp:377-394)
         x = central * (self.conversion_base / p["vod"])[:, None, None]
@@ -485,6 +674,30 @@ class PopPKLikelihood:
         window = tb["window_mask"][None]
         bad = (window & torch.isnan(x)).any(dim=2).any(dim=1) | torch.isnan(logp)
         return torch.where(bad, -math.inf, logp)
+
+
+    def simulate_trajectories(self, xs: torch.Tensor) -> torch.Tensor:
+        """Central-compartment concentrations (B, P, T) in nM of every row
+        of xs (B, D): the JAX package's `simulate_trajectories` (the
+        analogue of the R bridge's get_simulated_data, reference:
+        interface_popPK.cpp:79) batched over rows, every model through
+        `_simulate_linear` or the DP5 path in xs's dtype."""
+        conc, _ = self.simulate_states(xs)
+        return conc
+
+    def simulate_states(self, xs: torch.Tensor):
+        """Concentrations (B, P, T) in nM and the compartment states (B, P,
+        T, n_states) in mg at the observation grid, for every row of xs
+        (B, D) (the JAX package's `simulate_states`; reference:
+        interface_popPK.cpp:79-120 out_trajectories)."""
+        tb = self._tables(xs.device, xs.dtype)
+        p, _, _ = self._patient_params(xs)
+        if self.pk_type in TRANSIT_TYPES:
+            states = self._simulate_transit(p, tb, full_state=True)[..., : self.n_states]
+        else:
+            states = self._simulate_linear(p, tb, full_state=True)
+        conc = states[..., 1] * (self.conversion_base / p["vod"])[:, None, None]
+        return conc, states
 
 
 def create_poppk_likelihood(varset: VariableSet, attrs) -> PopPKLikelihood:

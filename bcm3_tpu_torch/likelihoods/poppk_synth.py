@@ -135,6 +135,15 @@ def _propagate_np(y, dt, ka, ke, kel, kpf, kpb, pk_type):
     return expm(A * dt) @ y
 
 
+BIPHASIC = ("one_biphasic_uptake", "two_biphasic_uptake")
+# The biphasic model reads 7 structural values by position (kpf and kpb
+# at 4 and 5) and its switch time and second absorption rate by name
+# (bcm3_tpu/likelihoods/poppk.py:237-245, :362-389), with no slot left
+# for an eighth: mean_absorption2 takes slot 5, so kpb and ka2 are one
+# sampled rate here.
+BIPHASIC_NAMES = ["k_periphery_fwd", "mean_absorption2", "biphasic_uptake_time"]
+
+
 def make_poppk_varset(num_patients: int, pk_type: str = "one") -> VariableSet:
     """Prior variable layout matching the reference's expectations
     (reference: LikelihoodPopPKTrajectory.cpp:127, 283-310): structural
@@ -143,10 +152,10 @@ def make_poppk_varset(num_patients: int, pk_type: str = "one") -> VariableSet:
     vs = VariableSet()
     names = ["mean_absorption", "mean_excretion", "mean_elimination",
              "volume_of_distribution"]
-    if pk_type in ("two", "two_biphasic_uptake", "one_biphasic_uptake"):
+    if pk_type == "two":
         names += ["k_periphery_fwd", "k_periphery_bwd"]
-    if pk_type in ("two_biphasic_uptake", "one_biphasic_uptake"):
-        names += ["biphasic_uptake_time"]  # num_pk_params = 7
+    if pk_type in BIPHASIC:
+        names += BIPHASIC_NAMES
     if pk_type == "one_transit":
         names += ["n_transit", "mean_transit_time"]
     if pk_type == "two_transit":
@@ -188,6 +197,10 @@ def write_poppk_prior_xml(path: str, num_patients: int, pk_type: str = "one"):
     if pk_type in ("two", "two_transit"):
         var("k_periphery_fwd", "uniform", logspace=True, lower=-3.0, upper=0.0)
         var("k_periphery_bwd", "uniform", logspace=True, lower=-3.0, upper=0.0)
+    if pk_type in BIPHASIC:
+        var("k_periphery_fwd", "uniform", logspace=True, lower=-3.0, upper=0.0)
+        var("mean_absorption2", "uniform", logspace=True, lower=-3.0, upper=0.0)
+        var("biphasic_uptake_time", "uniform", lower=0.5, upper=6.0)
     if pk_type == "two_transit" or pk_type == "one_transit":
         var("n_transit", "uniform", logspace=True, lower=0.0, upper=1.0)
         var("mean_transit_time", "uniform", logspace=True, lower=-1.0, upper=1.5)

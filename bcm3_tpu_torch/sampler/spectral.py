@@ -204,13 +204,14 @@ def fit_spectral_clustering(
     num_clusters: int,
     max_samples: int,
     rng: np.random.Generator,
-    device="cpu",
+    device="cuda",
     discard_first: int = 0,
     dump_sink: Optional[dict] = None,
 ) -> Optional[ClusterAssigner]:
     """Fit the density-aware spectral clustering on a (N, D) history matrix
-    on the host (its distinct rows found on `device`); the
-    ClusterAssigner's tensors are put on `device`. None if
+    on the host (its distinct rows found on `device`, the card unless the
+    caller asks for the CPU); the ClusterAssigner's tensors are put on
+    `device`. None if
     the history is degenerate (reference: SampleHistoryClustering.cpp
     Cluster:28-228).
 

@@ -24,9 +24,9 @@ Phases, each printing its lines before the last:
    kernels;
 6. the adapted slice, bench.py's `bench_adapted` protocol on the `one`
    configuration with proposal adaptation on (100 samples, adaptations at
-   33 and 66, the batched GMM EM on the card): a cold sampler's run()
-   crosses both boundaries, a second sampler's run() gives the warm
-   boundary stall, and one more run() of it, with the adapted proposals
+   33 and 66, the batched GMM EM on the card): a sampler's run()
+   crosses both boundaries (the protocol's cold sampler before it is cut
+   for time), and one more run() of it, with the adapted proposals
    and no boundary, gives the wall, the device profile and ESS/s; each
    boundary's seconds are split into the history gather, the EM fits (and
    the eigendecompositions within them) and the proposal build;
@@ -65,11 +65,31 @@ Phases, each printing its lines before the last:
    torch.linalg.eigh on one EM step's largest batch under each CUDA
    linear-algebra backend and on the CPU;
 12. the port on the card (float32, kernels) against the port on the CPU
-   (float64 tables, plain versions) for 256 prior draws of each model.
+   (float64 tables, plain versions) for 256 prior draws of each model;
+13. `banana`, the analytic banana target of tests/fixtures/examples at
+   bench.py bench_banana's shape (6 chains x 8192 ensembles, 800 samples
+   thinned by 5, one GMM adaptation after 400, float32): the cold run's
+   boundary; its T=1 rows and acceptance before the boundary against the
+   port's run on the CPU within MCSE_LIMIT standard errors; the distance
+   of the rows after it, and of a second run's second half, from the
+   quadrature moments over the prior box (logged: after a mixture
+   adaptation the sampler misses them, as the JAX package's does,
+   ROADMAP C); evals/s and ESS/s of the second run as bench.py computes
+   them;
+14. `multimodal_gaussians` with global covariance proposals (4 chains x
+   1024 ensembles, 2000 samples thinned by 3 (the JAX test's 4000, cut),
+   one adaptation after 1000):
+   the T=1 share with x1 > 0 against the quadrature mass;
+15. `poppk_models`: `two` and `one_biphasic_uptake` at `one`'s width and
+   depth (cold, warm and profiled runs), `two_transit` at one_transit's
+   width cut to TWO_TRANSIT_ITERATIONS iterations and one profiled
+   evaluation, each against the port on the CPU on 256 prior draws
+   (two_transit on TWO_TRANSIT_ORACLE_DRAWS).
 
 The kernels' launch counters are set to 0 just before each slice of the
-main path (phases 4-7, 9 and 10) and read just after it, so the counts show
-that each slice itself went through the kernels (`cli_one` through both).
+main path (phases 4-7, 9, 10 and 13-15) and read just after it, so the
+counts show that each slice itself went through the kernels (`cli_one`
+through both; phases 13-15 run paths that no kernel serves).
 Any failed check raises, and the script exits non-zero without printing a
 result. The last line is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -139,6 +159,39 @@ CLI_TRANSIT_ROWS = 32768
 # best log-likelihood so far, about 1 in 10^4 draws on `one`: 20,000 kept
 # rows would take ~10^5 batches, so the run stops after this many
 CLI_IS_ROUNDS = 500
+
+# the analytic targets' prior and likelihood files (the repo's fixtures)
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                        "examples")
+# banana: bench.py bench_banana's shape (bench.py:587-620, :683-693), float32
+BANANA = dict(num_chains=6, num_ensembles=8192, num_samples=800, use_every_nth=5,
+              adapt_proposal_samples=400, adapt_proposal_times=1, max_history_size=2000,
+              seed=7)
+BANANA_BOX = ((-5.0, 5.0), (-5.0, 15.0))  # tests/fixtures/examples/banana/prior.xml
+# the port's CPU run that the card's rows before the boundary are held to
+BANANA_CPU_ENSEMBLES = 64
+# multimodal_gaussians: tests/test_sampler_banana.py:74-95 at 1024 ensembles,
+# cut from 4000 samples to 2000 (its 12,000 iterations took 95 s on the card)
+MULTIMODAL = dict(num_chains=4, num_ensembles=1024, num_samples=2000, use_every_nth=3,
+                  proposal_type="global_covariance", adapt_proposal_samples=1000,
+                  adapt_proposal_times=1, max_history_size=4000,
+                  adapt_proposal_max_history_samples=2000, seed=99)
+MULTIMODAL_BOX = (-10.0, 10.0)  # tests/fixtures/examples/multimodal_gaussians/prior.xml
+# the limit, in standard errors, of the card's runs against the CPU's run and
+# against the quadrature oracle; an sd's error comes from groups of this many
+# ensembles
+MCSE_LIMIT = 4.0
+MOMENT_GROUP = 256
+# poppk_models: two and the biphasic model at `one`'s width and depth,
+# two_transit at one_transit's width: its eager DP5 launches ~400 kernels
+# per trip, 768 trips per evaluation, so its run is cut to this many
+# iterations (after the start-position search)
+TWO_TRANSIT_ITERATIONS = 2
+# its card-vs-CPU rows: the CPU's eager DP5 took about 155 s for 256 (all
+# of 4,096 lanes), so two_transit is compared on this many prior draws
+TWO_TRANSIT_ORACLE_DRAWS = 64
+# the device of phases 13-15 (a rehearsal on the CPU sets "cpu")
+CARD = "cuda"
 
 # published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
 # the tensor cores, and HBM3 bandwidth
@@ -535,25 +588,27 @@ def ess_stats(res, num_ensembles, seconds):
     }
 
 
-def adapted_protocol(name, models, smi, profile_samples=NUM_SAMPLES["one"], **override):
+def adapted_protocol(name, models, smi, profile_samples=NUM_SAMPLES["one"], cold=True,
+                     **override):
     """bench_adapted's protocol on the card (bench.py:232-283), with
     `override`'s PTConfig fields: a cold sampler's run() crosses both
-    boundaries, a second sampler's run() gives the warm boundaries, and a
-    third run() of it (the adapted proposals, no boundary) gives the wall
-    per iteration; a fourth run() of `profile_samples` samples under
-    torch.profiler gives the device's busy time. Returns the warm sampler,
-    the third run's result and its state, and the measurements (with the
-    warm run's boundaries)."""
+    boundaries (skipped with cold=False), a second sampler's run() gives
+    the warm boundaries, and a third run() of it (the adapted proposals,
+    no boundary) gives the wall per iteration; a fourth run() of
+    `profile_samples` samples under torch.profiler gives the device's busy
+    time. Returns the warm sampler, the third run's result and its state,
+    and the measurements (with the warm run's boundaries)."""
     import numpy as np
     import torch
 
     prior, lik = models["one"]
-    cold = adapted_sampler(prior, lik, **override)
-    res = cold.run()
-    check_run(res, cold, ADAPT_TIMES)
-    log_boundaries(f"{name} cold", res, smi)
-    del cold, res
-    torch.cuda.empty_cache()
+    if cold:
+        first = adapted_sampler(prior, lik, **override)
+        res = first.run()
+        check_run(res, first, ADAPT_TIMES)
+        log_boundaries(f"{name} cold", res, smi)
+        del first, res
+        torch.cuda.empty_cache()
 
     warm = adapted_sampler(prior, lik, **override)
     res = warm.run()
@@ -603,8 +658,11 @@ def adapted_protocol(name, models, smi, profile_samples=NUM_SAMPLES["one"], **ov
 
 
 def phase_adapted(models, unadapted, smi):
-    """bench_adapted on the card: GMM proposals, the batched EM."""
-    _, res, _, m = adapted_protocol("adapted", models, smi)
+    """bench_adapted on the card: GMM proposals, the batched EM. Its cold
+    sampler is left out (its two boundaries took about 130 s of the
+    script's time limit); the warm sampler's boundaries are the first of
+    the script's GMM boundaries."""
+    _, res, _, m = adapted_protocol("adapted", models, smi, cold=False)
     log(f"adapted against unadapted `one`: wall {m['wall_ms']:.4f} against "
         f"{unadapted['wall_ms']:.4f} ms, busy {m['busy_ms']} against "
         f"{unadapted['busy_ms']} ms per iteration")
@@ -620,8 +678,10 @@ def phase_clustered(models, unadapted, smi):
 
     from bcm3_tpu_torch.sampler import spectral
 
+    # without the protocol's cold sampler (about 55 s), cut for time
     warm, res, state, m = adapted_protocol(
-        "clustered", models, smi, profile_samples=CLUSTERED_PROFILE_SAMPLES, **CLUSTERED
+        "clustered", models, smi, profile_samples=CLUSTERED_PROFILE_SAMPLES, cold=False,
+        **CLUSTERED
     )
     assert warm._assigner is not None, "no clustering was fitted"
     assert all(p.clustered for p in warm.proposals)
@@ -694,6 +754,313 @@ def phase_autoblock(models, smi):
         "within-cluster |correlation| was above the tree's cut at 0.5)")
     return res
 
+
+
+def analytic_model(example):
+    """Prior and likelihood of one of the repo's analytic fixtures, read as
+    a user reads them."""
+    from bcm3_tpu_torch import Prior, VariableSet, create_likelihood
+
+    d = os.path.join(FIXTURES, example)
+    vs = VariableSet.from_xml(os.path.join(d, "prior.xml"))
+    return Prior.from_xml(os.path.join(d, "prior.xml"), vs), create_likelihood(
+        os.path.join(d, "likelihood.xml"), vs)
+
+
+def quadrature(log_density, box, n):
+    """Trapezoid weights times the normalized density on an n x n grid of a
+    2-D box; returns the two coordinate grids and the weights."""
+    import numpy as np
+
+    axes = [np.linspace(lo, hi, n) for lo, hi in box]
+    w = np.ones(n)
+    w[[0, -1]] = 0.5
+    X1, X2 = np.meshgrid(*axes, indexing="ij")
+    logp = log_density(X1, X2)
+    p = np.outer(w, w) * np.exp(logp - logp.max())
+    return X1, X2, p / p.sum()
+
+
+def banana_oracle():
+    """Posterior mean and sd of the banana fixture over its prior box."""
+    import numpy as np
+
+    def logp(x1, x2):  # sd1 2, sd2 1, the ridge mean as the reference writes it
+        return -0.5 * (x1 / 2.0) ** 2 - 0.5 * (x2 - (x1 + 3.0 * x1 + (1.0 - x1) ** 2)) ** 2
+
+    X1, X2, p = quadrature(logp, BANANA_BOX, 2001)
+    mean = np.array([(p * X1).sum(), (p * X2).sum()])
+    sd = np.sqrt([(p * (X1 - mean[0]) ** 2).sum(), (p * (X2 - mean[1]) ** 2).sum()])
+    return mean, sd
+
+
+def oracle_distance(name, x, smi):
+    """Mean and sd of each coordinate of the T=1 rows x (S, E, D) against
+    the banana oracle, with their Monte Carlo standard errors (a mean's:
+    the spread of the per-ensemble means over sqrt(E); an sd's: that of
+    the sds of groups of MOMENT_GROUP ensembles). Logged, not asserted:
+    after a mixture adaptation the sampler, as the JAX package's, misses
+    the oracle (ROADMAP C)."""
+    import numpy as np
+
+    S, E, D = x.shape
+    per_ensemble = x.mean(axis=0)
+    mean, mean_se = per_ensemble.mean(axis=0), per_ensemble.std(axis=0, ddof=1) / np.sqrt(E)
+    groups = x.reshape(S, E // MOMENT_GROUP, MOMENT_GROUP, D).transpose(1, 0, 2, 3)
+    group_sd = groups.reshape(E // MOMENT_GROUP, -1, D).std(axis=1)
+    sd, sd_se = group_sd.mean(axis=0), group_sd.std(axis=0, ddof=1) / np.sqrt(len(group_sd))
+    exact_mean, exact_sd = banana_oracle()
+    log(f"{name}: mean {mean.tolist()} +- {mean_se.tolist()} (oracle {exact_mean.tolist()}, "
+        f"z {((mean - exact_mean) / mean_se).tolist()}); sd {sd.tolist()} +- "
+        f"{sd_se.tolist()} (oracle {exact_sd.tolist()}, z "
+        f"{((sd - exact_sd) / sd_se).tolist()}); not asserted (ROADMAP C); {S} samples x "
+        f"{E} ensembles; on {smi}")
+
+
+def run_to_the_boundary(sampler):
+    """sampler.run(), with the T=1 rows and the acceptance counters as they
+    stand at its (first) adaptation boundary kept in the result under
+    "before"."""
+    adapt, before = sampler._adapt_proposals, {}
+
+    def adapt_and_keep(state):
+        before.update({k: getattr(state, k).cpu().numpy().astype("float64")
+                       for k in ("att_mut", "acc_mut", "att_exc", "acc_exc")})
+        return adapt(state)
+
+    sampler._adapt_proposals = adapt_and_keep
+    try:
+        res = sampler.run()
+    finally:
+        del sampler._adapt_proposals
+    res["before"] = before
+    return res
+
+
+def same_law(name, card, cpu, smi):
+    """The card's T=1 rows and acceptance counters before the adaptation
+    (`card`, `cpu`: dicts of rows (S, E, D) and of "att_mut", "acc_mut",
+    "att_exc", "acc_exc" per chain, ladder fastest) against the CPU's:
+    each coordinate's mean and mean square over the second half of the
+    rows, and each temperature's mutate and exchange acceptance, within
+    MCSE_LIMIT standard errors of the difference (each the spread over
+    independent ensembles over sqrt(ensembles))."""
+    import numpy as np
+
+    def per_ensemble(run):
+        x = run["rows"][run["rows"].shape[0] // 2:]
+        stats = [x.mean(axis=0), (x * x).mean(axis=0)]
+        for move in ("mut", "exc"):
+            att = run[f"att_{move}"].reshape(x.shape[1], -1)
+            stats.append(np.where(att > 0, run[f"acc_{move}"].reshape(att.shape)
+                                  / np.maximum(att, 1), 0.0))
+        per = np.concatenate(stats, axis=1)  # (E, 2 D + 2 chains)
+        return per.mean(axis=0), per.std(axis=0, ddof=1) / np.sqrt(len(per))
+
+    (a, sa), (b, sb) = per_ensemble(card), per_ensemble(cpu)
+    z = (a - b) / np.maximum(np.sqrt(sa**2 + sb**2), 1e-12)
+    log(f"{name}: card {np.round(a, 4).tolist()}, CPU {np.round(b, 4).tolist()} "
+        f"(E[x], E[x^2], then mutate and exchange acceptance by temperature), z "
+        f"{np.round(z, 3).tolist()}, max |z| {np.abs(z).max():.3f} (limit {MCSE_LIMIT}); "
+        f"on {smi}")
+    assert np.all(np.abs(z) <= MCSE_LIMIT), f"{name}: z {z}"
+
+
+def analytic_sampler(example, config):
+    import torch
+
+    from bcm3_tpu_torch.sampler import PTConfig, SamplerPT
+
+    prior, lik = analytic_model(example)
+    cfg = PTConfig(**config, swapping_scheme="deterministic_even_odd", emit_fixed_only=True,
+                   emit_dtype=torch.float32, device=CARD, dtype=torch.float32)
+    return SamplerPT(prior, lik, cfg)
+
+
+def phase_banana(smi):
+    """bench.py bench_banana on the card: a cold run() crosses the GMM
+    boundary (its breakdown). Before it, its T=1 rows and acceptance are
+    held to the port's run on the CPU (float64, BANANA_CPU_ENSEMBLES
+    ensembles, the same configuration up to the boundary); after it the
+    rows' distance from the quadrature oracle is logged. A second run() of
+    the sampler, with the adapted proposals, gives evals/s and ESS/s as
+    bench.py computes them (the second half's T=1 traces of 256
+    ensembles, over the run's wall)."""
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch.sampler import PTConfig, SamplerPT
+
+    sampler = analytic_sampler("banana", BANANA)
+    S, E = BANANA["num_samples"], BANANA["num_ensembles"]
+    A = BANANA["adapt_proposal_samples"]
+    cold = run_to_the_boundary(sampler)
+    torch.cuda.synchronize()
+    assert cold["adaptation_boundaries"] == 1, cold["adaptation_boundaries"]
+    assert np.isfinite(cold["log_prior"] + cold["log_likelihood"]).all()
+    log_boundaries("banana", cold, smi)
+    rows = cold["samples"].reshape(S, E, -1).astype(np.float64)
+    prior, lik = analytic_model("banana")
+    t = time.perf_counter()
+    cpu = SamplerPT(prior, lik, PTConfig(**dict(
+        BANANA, num_ensembles=BANANA_CPU_ENSEMBLES, num_samples=A, adapt_proposal_samples=0,
+        adapt_proposal_times=0), swapping_scheme="deterministic_even_odd", emit_fixed_only=True,
+        device="cpu", dtype=torch.float64))
+    res = cpu.run()
+    log(f"banana on the CPU: {BANANA['num_chains']} x {BANANA_CPU_ENSEMBLES} chains, {A} "
+        f"samples, {time.perf_counter() - t:.3f} s")
+    same_law("banana before its boundary, card against CPU",
+             dict(cold["before"], rows=rows[:A]),
+             dict({k: v.astype(np.float64) for k, v in (
+                 ("att_mut", res["acceptance"]["attempted_mutate"]),
+                 ("acc_mut", res["acceptance"]["accepted_mutate"]),
+                 ("att_exc", res["acceptance"]["attempted_exchange"]),
+                 ("acc_exc", res["acceptance"]["accepted_exchange"]))},
+                  rows=res["samples"].reshape(A, BANANA_CPU_ENSEMBLES, -1).astype(np.float64)),
+             smi)
+    half = S // 2
+    oracle_distance("banana cold run, after its boundary", rows[half:], smi)
+    warm = sampler.run()
+    assert warm["adaptation_boundaries"] == 0
+    mut, exc = sampler.acceptance_rates(sampler.state)
+    ess = ess_stats({"samples": warm["samples"][half * E:]}, E, warm["elapsed_seconds"])
+    log(f"banana adapted run: {BANANA['num_chains']} x {E} chains, {warm['evaluations']} "
+        f"evaluations in {warm['elapsed_seconds']:.3f} s = {warm['evals_per_second']:.1f} "
+        f"evals/s ({warm['sampling_seconds']:.3f} s of iterations); ESS per chain "
+        f"{ess['ess_per_chain_mean']:.4f} of {S - half} samples, ESS/s "
+        f"{ess['ess_per_sec']:.1f} (worst variable {ess['ess_min_var_per_sec']:.1f}); "
+        f"mutate acceptance by temperature {np.round(mut, 4).tolist()}, exchange "
+        f"{np.round(exc, 4).tolist()}; on {smi}")
+    oracle_distance("banana adapted run, second half",
+                    warm["samples"].reshape(S, E, -1)[half:].astype(np.float64), smi)
+    return dict(evals_per_second=warm["evals_per_second"], ess_per_sec=ess["ess_per_sec"])
+
+
+def multimodal_oracle():
+    """Quadrature mass of x1 > 0 of the multimodal_gaussians posterior over
+    its prior box (the fixed mixture of TestLikelihoodMultimodalGaussians)."""
+    import numpy as np
+
+    means = np.array([[-5.0, -5.0], [5.0, 5.0]])
+    covs = np.array([[[1.0, -0.9], [-0.9, 1.0]], [[2.0, -0.5], [-0.5, 1.0]]])
+
+    def logp(x1, x2):
+        parts = []
+        for m, c in zip(means, covs):
+            ic = np.linalg.inv(c)
+            d1, d2 = x1 - m[0], x2 - m[1]
+            q = ic[0, 0] * d1 * d1 + 2 * ic[0, 1] * d1 * d2 + ic[1, 1] * d2 * d2
+            parts.append(np.log(0.5) - 0.5 * q - 0.5 * np.log(np.linalg.det(c)))
+        return np.logaddexp(*parts)
+
+    X1, _, p = quadrature(logp, (MULTIMODAL_BOX, MULTIMODAL_BOX), 2001)
+    return float(p[X1 > 0].sum())
+
+
+def phase_multimodal(smi):
+    """tests/test_sampler_banana.py's multimodal_gaussians run with global
+    covariance proposals, on the card at 1024 ensembles: the T=1 share of
+    the second half's rows with x1 > 0 against the quadrature mass."""
+    import numpy as np
+
+    sampler = analytic_sampler("multimodal_gaussians", MULTIMODAL)
+    S, E = MULTIMODAL["num_samples"], MULTIMODAL["num_ensembles"]
+    res = sampler.run()
+    assert res["adaptation_boundaries"] == 1
+    x = res["samples"].reshape(S, E, -1)[S // 2:]
+    per_ensemble = (x[..., 0] > 0).mean(axis=0)
+    share, se = per_ensemble.mean(), per_ensemble.std(ddof=1) / np.sqrt(E)
+    exact = multimodal_oracle()
+    mut, exc = sampler.acceptance_rates(sampler.state)
+    log(f"multimodal_gaussians: T=1 share with x1 > 0 {share:.5f} +- {se:.5f} (quadrature "
+        f"{exact:.6f}, z {(share - exact) / se:.3f}, limit {MCSE_LIMIT}); ensembles that "
+        f"visited both modes {float(((per_ensemble > 0) & (per_ensemble < 1)).mean()):.4f}; "
+        f"{res['evaluations']} evaluations in {res['elapsed_seconds']:.3f} s = "
+        f"{res['evals_per_second']:.1f} evals/s; mutate acceptance {np.round(mut, 4).tolist()}, "
+        f"exchange {np.round(exc, 4).tolist()}; on {smi}")
+    assert abs(share - exact) <= MCSE_LIMIT * se, f"mode share {share} against {exact}"
+    return dict(evals_per_second=res["evals_per_second"])
+
+
+def phase_poppk_models(workdir, smi):
+    """The other PopPK models through SamplerPT on the card: `two` and
+    `one_biphasic_uptake` at `one`'s width and depth (cold run, warm wall
+    per iteration, busy share under the profiler), `two_transit` at
+    one_transit's width cut to TWO_TRANSIT_ITERATIONS iterations (one cold
+    run; the busy share of one profiled evaluation); then each against the
+    port on the CPU on ORACLE_DRAWS prior draws (two_transit on
+    TWO_TRANSIT_ORACLE_DRAWS)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bcm3_tpu_torch.sampler import PTConfig, SamplerPT
+
+    evals = {}
+    for pk_type in ("two", "one_biphasic_uptake", "two_transit"):
+        prior, lik = build_model(pk_type, workdir)
+        transit = pk_type == "two_transit"
+        E = ENSEMBLES["one_transit" if transit else "one"]
+        cfg = PTConfig(
+            num_samples=TWO_TRANSIT_ITERATIONS if transit else NUM_SAMPLES["one"],
+            use_every_nth=1 if transit else USE_EVERY_NTH, num_chains=NUM_CHAINS,
+            num_ensembles=E, adapt_proposal_samples=0, adapt_proposal_times=0,
+            swapping_scheme="deterministic_even_odd", seed=7, emit_dtype=torch.float32,
+            emit_fixed_only=True, device=CARD, dtype=torch.float32,
+        )
+        sampler = SamplerPT(prior, lik, cfg)
+        res = sampler.run()
+        torch.cuda.synchronize()
+        iterations = cfg.num_samples * cfg.use_every_nth
+        assert res["samples"].shape == (cfg.num_samples * E, 1, prior.num_variables)
+        assert np.isfinite(res["log_prior"] + res["log_likelihood"]).all()
+        mut, _ = sampler.acceptance_rates(sampler.state)
+        line = (f"{pk_type}: {NUM_CHAINS} x {E} chains, {iterations} iterations, cold run "
+                f"{res['evaluations']} evaluations in {res['elapsed_seconds']:.3f} s = "
+                f"{res['evals_per_second']:.1f} evals/s ({res['sampling_seconds']:.3f} s of "
+                f"iterations); T=1 mutate acceptance {mut[-1]:.4f}")
+        if transit:
+            # one evaluation of the population (its kernels warm from the
+            # run): CUDA events, then one more under the profiler
+            x = sampler.state.x
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            lik.log_prob_batched(x)
+            stop.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(stop)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                lik.log_prob_batched(x)
+                torch.cuda.synchronize()
+            busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == DeviceType.CUDA) / 1e3
+            line += (f"; one evaluation of {NUM_CHAINS * E} chains x {NUM_PATIENTS} patients: "
+                     f"{ms:.1f} ms (CUDA events), device busy {busy:.1f} ms under the profiler, "
+                     f"idle share {1.0 - busy / ms:.4f}")
+            evals[pk_type] = NUM_CHAINS * E / ms * 1e3
+        else:
+            warm = sampler.run()
+            wall_ms = warm["sampling_seconds"] * 1e3 / iterations
+            # ~1,500 launches an iteration: the profiled run is shorter, as
+            # the clustered slices' are
+            sampler.config = dataclasses.replace(sampler.config,
+                                                 num_samples=CLUSTERED_PROFILE_SAMPLES)
+            busy_ms, top = profile_sampling(sampler, CLUSTERED_PROFILE_SAMPLES * USE_EVERY_NTH)
+            idle = "not measured" if busy_ms is None else f"{1.0 - busy_ms / wall_ms:.4f}"
+            line += (f"; warm {wall_ms:.4f} ms per iteration = "
+                     f"{NUM_CHAINS * E / wall_ms * 1e3:.1f} evals/s, device busy {busy_ms} ms "
+                     f"per iteration (under the profiler), idle share {idle}; largest kernels "
+                     + ", ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in top[:4]))
+            evals[pk_type] = NUM_CHAINS * E / wall_ms * 1e3
+        log(line + f"; on {smi}")
+        draws = TWO_TRANSIT_ORACLE_DRAWS if transit else ORACLE_DRAWS
+        xs = prior.sample(torch.Generator().manual_seed(5), (draws,), torch.float64)
+        card = lik.log_prob_batched(xs.to(CARD, torch.float32)).double().cpu().numpy()
+        card_vs_cpu(f"card vs CPU {pk_type}", pk_type, lik, xs, card)
+        del sampler, res
+        torch.cuda.empty_cache()
+    return evals
 
 
 def timed_calls(obj, name, seconds):
@@ -1027,11 +1394,13 @@ def phase_oracle(pk_type, workdir):
 def card_vs_cpu(name, pk_type, lik, xs, card):
     """The card's log-likelihoods `card` (float64 numpy) at the rows `xs`
     (a float64 CPU tensor) against the port on the CPU (float64, plain
-    versions), within the tolerances of the model: `one` float32 against
-    float64 on every row, `one_transit` two float32 solves."""
+    versions), within the tolerances of the model: `one`, `two` and the
+    biphasic models float32 against float64 on every row, the transit
+    models a float32 adaptive solve against the CPU's."""
     import numpy as np
 
     n = len(xs)
+    transit = pk_type in ("one_transit", "two_transit")
     cpu = lik.log_prob_batched(xs).numpy()
     # prior draws can put a rate such as ka = 10^(mu + sigma * ndtri(u))
     # beyond float32's range (sigma is half-Cauchy); such a row is -inf in
@@ -1043,22 +1412,38 @@ def card_vs_cpu(name, pk_type, lik, xs, card):
         v = v.reshape(n, -1).abs().numpy()
         fits &= (v < np.finfo(np.float32).max).all(axis=1)
     fin_cpu, fin_card = np.isfinite(cpu), np.isfinite(card)
+    beyond = int((~fits).sum())
+    if pk_type != "one" and not transit:
+        # the two-compartment closed form leaves float32's range on some
+        # rows whose rates fit in it (tr * tr in _expm_2x2, det_p of the
+        # particular solution); the JAX package's float32 path scores -inf
+        # on the same rows (tests/test_torch_poppk.py::
+        # test_float32_range_matches_jax). There the card is held to the
+        # CPU's float32 finite set, elsewhere to its float64
+        fin32 = np.isfinite(lik.log_prob_batched(xs.float()).numpy())
+        f32_range = fits & (fin32 != fin_cpu)
+        off = int((fin32 != fin_card)[f32_range].sum())
+        log(f"{name}: {int(f32_range.sum())} rows leave float32's range with rates inside "
+            f"it, {off} of them with another finite set on the card than the CPU's float32")
+        assert off == 0
+        fits &= ~f32_range
     mismatched = int((fin_cpu != fin_card)[fits].sum())
     both = fin_cpu & fin_card
     rel = np.abs(card[both] - cpu[both]) / np.abs(cpu[both])
-    if pk_type == "one":
-        # float32 on the card against float64 on the CPU: every row
+    if not transit:
+        # every row, within float32's rounding of the closed form
         rtol, share, limit = 1e-3, 1.0, 0
     else:
-        # both solve in float32 (the CPU with the plain version and the
-        # CPU's exp/log): a float32 adaptive solve at rtol 1e-6 takes another
-        # step sequence on a small share of lanes when the last bits differ,
-        # so >= 95% of the rows within rtol 5e-3 (as
+        # the card solves in float32 (one_transit's CPU too: B2's plain
+        # version always does; two_transit's DP5 takes the rows' dtype, so
+        # the CPU solves in float64): a float32 adaptive solve at rtol 1e-6
+        # takes another step sequence on a small share of lanes when the
+        # last bits differ, so >= 95% of the rows within rtol 5e-3 (as
         # tests/test_poppk_pallas.py:115-134), <= 5% finite-set flips
         rtol, share, limit = 5e-3, 0.95, n // 20
     within = float((rel <= rtol).mean())
     log(f"{name}: {int(both.sum())}/{n} finite on both, "
-        f"{int((~fits).sum())} rows with rates beyond float32, {mismatched} "
+        f"{beyond} rows with rates beyond float32, {mismatched} "
         f"finite-set mismatches among the others (limit {limit}), {within:.4f} of "
         f"rows within rtol {rtol} (limit {share}), max rel err {rel.max():.3e}, "
         f"median {np.median(rel):.3e}")
@@ -1123,6 +1508,13 @@ def main(workdir):
     del autoblock
     torch.cuda.empty_cache()
     main_path("cli_one", ("poppk_propagate", "transit_dp5"), phase_cli, models, workdir, smi)
+    # the slices of this port's later paths, which no kernel serves
+    # (counted all the same, to show it)
+    analytic = {"banana": main_path("banana", (), phase_banana, smi),
+                "multimodal_gaussians": main_path("multimodal_gaussians", (), phase_multimodal,
+                                                  smi)}
+    evals.update({k: v["evals_per_second"] for k, v in analytic.items()})
+    evals.update(main_path("poppk_models", (), phase_poppk_models, workdir, smi))
     launches = {k: sum(p[k] for p in paths.values()) for k in counters}
     log(f"main-path launches: {launches}; per slice {json.dumps(paths)}")
 

@@ -14,6 +14,8 @@ the card against the CPU, and a short clustered_autoblock run re-blocks
 and assigns clusters on the card. A run interrupted at a boundary and
 resumed from its checkpoint equals the uninterrupted run bit for bit on
 the card, and the CLI's predict core on the card agrees with the CPU's.
+The analytic targets and the PopPK models two, one_biphasic_uptake and
+two_transit evaluate on the card as on the CPU.
 
 Each kernel is held to its plain PyTorch version on the same inputs:
 - B1: rtol 1e-5 in float32, 1e-12 in float64;
@@ -449,3 +451,49 @@ def test_predict_core_on_the_card_matches_cpu(cuda, tmp_path, pk_type):
         assert rel.max() <= 1e-3
     else:
         assert (rel <= 5e-3).mean() >= 0.95
+
+
+@pytest.mark.parametrize(
+    "example", ["banana", "multimodal_circular_ridge", "multimodal_gaussians", "truncated_t"]
+)
+def test_analytic_likelihoods_on_the_card_match_cpu(cuda, example):
+    """The analytic fixtures' likelihoods on the card against the CPU on the
+    same prior draws: float64 to rtol 1e-12, float32 to rtol 1e-5 (atol
+    1e-4 for values near 0)."""
+    import os
+
+    from bcm3_tpu_torch import Prior, VariableSet, create_likelihood
+
+    d = os.path.join(os.path.dirname(__file__), "fixtures", "examples", example)
+    vs = VariableSet.from_xml(os.path.join(d, "prior.xml"))
+    prior = Prior.from_xml(os.path.join(d, "prior.xml"), vs)
+    lik = create_likelihood(os.path.join(d, "likelihood.xml"), vs)
+    xs = prior.sample(torch.Generator().manual_seed(3), (4096,), torch.float64)
+    cpu = lik.log_prob_batched(xs)
+    card64 = lik.log_prob_batched(xs.to(cuda)).cpu()
+    card32 = lik.log_prob_batched(xs.to(cuda, torch.float32)).cpu().double()
+    assert torch.isfinite(cpu).all()
+    torch.testing.assert_close(card64, cpu, rtol=1e-12, atol=0.0)
+    torch.testing.assert_close(card32, cpu, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("pk_type", ["two", "one_biphasic_uptake", "two_transit"])
+def test_other_pk_models_on_the_card_match_cpu(cuda, tmp_path, pk_type):
+    """`two`, the biphasic model and `two_transit` on the card: float64
+    against the CPU's float64 (closed form to rtol 1e-10, the DP5 solve to
+    1e-8 with the same finite rows), and the closed-form models in float32
+    against float64 to rtol 1e-3 on the rows finite in both."""
+    prior, lik = _card_model(tmp_path, pk_type)
+    xs = prior.sample(torch.Generator().manual_seed(9), (64,), torch.float64)
+    cpu = lik.log_prob_batched(xs)
+    card = lik.log_prob_batched(xs.to(cuda)).cpu()
+    assert torch.equal(torch.isfinite(card), torch.isfinite(cpu))
+    assert torch.isfinite(cpu).sum() >= 16
+    fin = torch.isfinite(cpu)
+    rtol = 1e-8 if pk_type == "two_transit" else 1e-10
+    torch.testing.assert_close(card[fin], cpu[fin], rtol=rtol, atol=0.0)
+    if pk_type != "two_transit":
+        card32 = lik.log_prob_batched(xs.to(cuda, torch.float32)).cpu().double()
+        both = fin & torch.isfinite(card32)
+        assert both.sum() >= 16
+        torch.testing.assert_close(card32[both], cpu[both], rtol=1e-3, atol=0.0)

@@ -21,7 +21,7 @@ from bcm3_tpu.likelihoods import create_likelihood as jax_create_likelihood
 from bcm3_tpu.model.prior import Prior as JPrior
 from bcm3_tpu.model.variables import VariableSet as JVariableSet
 from bcm3_tpu_torch import Prior, VariableSet, create_likelihood
-from bcm3_tpu_torch.likelihoods.poppk import PopPKLikelihood
+from jax_shims import jax_biphasic_with_ka2
 from bcm3_tpu_torch.likelihoods.poppk_synth import (
     synthesize_trial,
     write_poppk_likelihood_xml,
@@ -113,16 +113,57 @@ def test_pkdata_round_trip(tmp_path):
         np.testing.assert_array_equal(getattr(back, name), getattr(trial, name))
 
 
-@pytest.mark.parametrize("pk_type", ["two", "one_biphasic_uptake", "two_transit"])
-def test_unported_pk_types_raise(pk_type):
-    trial, _ = synthesize_trial(num_patients=2, num_timepoints=6, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        PopPKLikelihood(VariableSet(), trial, pk_type, "lapatinib")
+_RTOL = {"two": 1e-10, "one_biphasic_uptake": 1e-10, "two_biphasic_uptake": 1e-10,
+         "two_transit": 1e-8}
+
+
+@pytest.mark.parametrize("pk_type", ["two", "one_biphasic_uptake", "two_transit",
+                                     "two_biphasic_uptake"])
+def test_unported_pk_types_raise(tmp_path, monkeypatch, pk_type):
+    """The pk_types that the port used to refuse (hence the name) against
+    the JAX package's `vmap(log_prob)` in float64 (two and the biphasic
+    models: closed form; two_transit: the budgeted DP5 solve), including
+    rows that must score -inf: an absorption uniform at 1 and a NaN
+    parameter."""
+    (prior, lik), (jprior, jlik) = _setup(str(tmp_path), pk_type, P=3, T=8)
+    if "biphasic" in pk_type:
+        jax_biphasic_with_ka2(jlik, monkeypatch)
+    xs = np.array(jprior.sample(jax.random.PRNGKey(4), (8,)))
+    m = lik.model
+    xs[5, _u_index(m, 2, 0)] = 1.0
+    xs[6, 1] = np.nan
+    ref = np.asarray(jax.vmap(jlik.log_prob)(xs))
+    got = lik.log_prob_batched(torch.as_tensor(xs)).numpy()
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(ref))
+    assert np.isneginf(got[[5, 6]]).all() and np.isfinite(got).sum() >= 3
+    np.testing.assert_allclose(got, ref, rtol=_RTOL[pk_type])
 
 
 def test_unported_likelihood_type_raises(tmp_path):
     path = os.path.join(tmp_path, "lik.xml")
     with open(path, "w") as f:
-        f.write('<bcm_likelihood type="banana" sd1="1" sd2="1"/>')
+        f.write('<bcm_likelihood type="pharmaco_single"/>')
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         create_likelihood(path, VariableSet())
+
+
+@pytest.mark.parametrize("pk_type", ["two", "one_biphasic_uptake"])
+def test_float32_range_matches_jax(tmp_path, monkeypatch, pk_type):
+    """In float32 the two-compartment closed form leaves float32's range on
+    some rows whose rates fit in it (tr * tr in `_expm_2x2`, `det_p` of the
+    particular solution) and scores them -inf where float64 is finite. The
+    JAX package's float32 `vmap(log_prob)` does so on the same rows: at
+    chip_smoke.py's shape (16 patients x 24 timepoints, trial seed 42, 256
+    prior draws of seed 5) the finite sets of both float32 paths are
+    equal, and some rows differ from float64's."""
+    (prior, lik), (_, jlik) = _setup(str(tmp_path), pk_type, P=16, T=24, seed=42)
+    if "biphasic" in pk_type:
+        jax_biphasic_with_ka2(jlik, monkeypatch)
+    xs = prior.sample(torch.Generator().manual_seed(5), (256,), torch.float64)
+    fin64 = np.isfinite(lik.log_prob_batched(xs).numpy())
+    fin32 = np.isfinite(lik.log_prob_batched(xs.float()).numpy())
+    with jax.enable_x64(False):
+        ref = jax.vmap(jlik.log_prob)(xs.float().numpy())
+    assert ref.dtype == np.float32
+    np.testing.assert_array_equal(fin32, np.isfinite(np.asarray(ref)))
+    assert (fin32 != fin64).sum() >= 3

@@ -40,7 +40,7 @@ def fits():
     jrng, trng = np.random.default_rng(9), np.random.default_rng(9)
     jdump, tdump = {}, {}
     jasg = jspec.fit_spectral_clustering(history, rng=jrng, dump_sink=jdump, **FIT)
-    tasg = tspec.fit_spectral_clustering(history, rng=trng, dump_sink=tdump, **FIT)
+    tasg = tspec.fit_spectral_clustering(history, rng=trng, dump_sink=tdump, device="cpu", **FIT)
     rng = np.random.default_rng(2)
     stored = tasg.scaled_samples.numpy()[rng.choice(FIT["max_samples"], 64, replace=False)]
     queries = np.concatenate([_mixture(rng, 512), stored * tasg.variable_scaling.numpy()])
@@ -139,5 +139,14 @@ def test_degenerate_history_fits_nothing(case):
     rng = np.random.default_rng(0)
     state = rng.bit_generator.state
     assert jspec.fit_spectral_clustering(x, 3, 7, 2, 100, np.random.default_rng(0)) is None
-    assert tspec.fit_spectral_clustering(x, 3, 7, 2, 100, rng) is None
+    assert tspec.fit_spectral_clustering(x, 3, 7, 2, 100, rng, "cpu") is None
     assert rng.bit_generator.state == state
+
+
+def test_fit_runs_on_the_card_unless_asked():
+    """A direct caller of the public fit gets the card by default, as
+    SamplerPT's callers do; the CPU is an explicit choice."""
+    import inspect
+
+    params = inspect.signature(tspec.fit_spectral_clustering).parameters
+    assert params["device"].default == "cuda"
