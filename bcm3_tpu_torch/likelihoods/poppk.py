@@ -47,7 +47,7 @@ from bcm3_tpu_torch.model.variables import (
 )
 from bcm3_tpu_torch.ode import linear_pk
 from bcm3_tpu_torch.ode.dp5 import solve_at_times_budget
-from bcm3_tpu_torch.ops.poppk_kernels import propagate_intervals_one_compartment
+from bcm3_tpu_torch.ops.poppk_kernels import PropagateOneCompartment
 from bcm3_tpu_torch.ops.transit_kernels import transit_solve
 
 # reference: LikelihoodPopPKTrajectory.cpp:377-394
@@ -450,11 +450,12 @@ class PopPKLikelihood:
     def _central_one(self, p, tb):
         """Central compartment (B, P, T) in mg: kernel B1 over the dosing
         intervals, then exact propagation of each observation from the
-        start of its interval (bcm3_tpu/likelihoods/poppk.py:751-785)."""
+        start of its interval (bcm3_tpu/likelihoods/poppk.py:751-785).
+        Differentiable in the rates through B1's autograd Function."""
         ka, kel = p["ka"].contiguous(), p["kel"].contiguous()
         B, P = ka.shape
         ke = p["ke"][:, None].expand(B, P).contiguous()
-        ys_gut, ys_cen = propagate_intervals_one_compartment(
+        ys_gut, ys_cen = PropagateOneCompartment.apply(
             ka, ke, kel, tb["initial_dose"], tb["interval"], tb["dose_amount"]
         )  # (K, B, P) each
         T = tb["obs_interval"].shape[1]

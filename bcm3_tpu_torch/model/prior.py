@@ -79,6 +79,11 @@ class Prior:
     dirichlet_blocks: List[DirichletBlock] = field(default_factory=list)
     # parameter tensors per (device, dtype), made on first use
     _tensors: dict = field(default_factory=dict, repr=False, compare=False)
+    # the family codes some variable has
+    _present: frozenset = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        self._present = frozenset(np.unique(self.dist_type).tolist())
 
     # ------------------------------------------------------------------
     # Construction
@@ -240,45 +245,35 @@ class Prior:
         def member_or(code, arr, neutral):
             return torch.where(t == code, torch.clamp(arr, min=tiny), neutral)
 
-        lp = put(UNIFORM, uv.logpdf_uniform(x, a, torch.where(b > a, b, a + 1.0)))
-        lp = put(
-            NORMAL,
-            uv.logpdf_normal(
+        families = {
+            UNIFORM: lambda: uv.logpdf_uniform(x, a, torch.where(b > a, b, a + 1.0)),
+            NORMAL: lambda: uv.logpdf_normal(
                 x, torch.where(t == NORMAL, a, 0.0), member_or(NORMAL, b, 1.0)
             ),
-        )
-        lp = put(
-            EXPONENTIAL, uv.logpdf_exponential(x, member_or(EXPONENTIAL, a, 1.0))
-        )
-        lp = put(
-            GAMMA,
-            uv.logpdf_gamma(x, member_or(GAMMA, a, 1.0), member_or(GAMMA, b, 1.0)),
-        )
-        lp = put(
-            BETA,
-            uv.logpdf_beta(x, member_or(BETA, a, 1.0), member_or(BETA, b, 1.0)),
-        )
-        lp = put(
-            HALF_CAUCHY, uv.logpdf_half_cauchy(x, member_or(HALF_CAUCHY, a, 1.0))
-        )
-        lp = put(
-            BETA_PRIME,
-            uv.logpdf_beta_prime(
+            EXPONENTIAL: lambda: uv.logpdf_exponential(x, member_or(EXPONENTIAL, a, 1.0)),
+            GAMMA: lambda: uv.logpdf_gamma(
+                x, member_or(GAMMA, a, 1.0), member_or(GAMMA, b, 1.0)
+            ),
+            BETA: lambda: uv.logpdf_beta(x, member_or(BETA, a, 1.0), member_or(BETA, b, 1.0)),
+            HALF_CAUCHY: lambda: uv.logpdf_half_cauchy(x, member_or(HALF_CAUCHY, a, 1.0)),
+            BETA_PRIME: lambda: uv.logpdf_beta_prime(
                 x,
                 member_or(BETA_PRIME, a, 1.0),
                 member_or(BETA_PRIME, b, 1.0),
                 member_or(BETA_PRIME, c, 1.0),
             ),
-        )
-        lp = put(
-            EXPONENTIAL_MIX,
-            uv.logpdf_exponential_mix(
+            EXPONENTIAL_MIX: lambda: uv.logpdf_exponential_mix(
                 x,
                 member_or(EXPONENTIAL_MIX, a, 1.0),
                 member_or(EXPONENTIAL_MIX, b, 1.0),
                 torch.clamp(c, 1e-12, 1.0 - 1e-12),
             ),
-        )
+        }
+        # a family no variable has would only be selected away: it is not
+        # evaluated (the same values, fewer launches)
+        for code, logpdf in families.items():
+            if code in self._present:
+                lp = put(code, logpdf())
         # Dirichlet members contribute via the block density below
         lp = torch.where(t == DIRICHLET_MEMBER, 0.0, lp)
         total = lp.sum(dim=-1)
@@ -301,7 +296,7 @@ class Prior:
         """Draw from the prior on the generator's device: (*shape, D).
         A family's random numbers are drawn only where the prior has it,
         so adding a family does not change the others' draws."""
-        present = set(np.unique(self.dist_type).tolist())
+        present = self._present
         device = generator.device
         full = (*shape, self.num_variables)
         t, a, b, c = self._params(device, dtype)

@@ -48,6 +48,10 @@ _SIGNATURES = {
     # lanes, patients, intervals, stream
     "bcm3_poppk_propagate_f32": [_P] * 8 + [_I64, _I32, _I32, _P],
     "bcm3_poppk_propagate_f64": [_P] * 8 + [_I64, _I32, _I32, _P],
+    # ka, ke, kel, interval, gut, cen, grad_gut, grad_cen, d_ka, d_ke,
+    # d_kel, lanes, patients, intervals, stream
+    "bcm3_poppk_propagate_adjoint_f32": [_P] * 11 + [_I64, _I32, _I32, _P],
+    "bcm3_poppk_propagate_adjoint_f64": [_P] * 11 + [_I64, _I32, _I32, _P],
     # ka, ke, kel, k_transit, n_transit, dose0, grid, amt, central, ok,
     # next_lane, lane_trips, warp_slots, lanes, patients, stops, trips,
     # rtol, atol, min_dt, first_dt, stream
@@ -143,3 +147,18 @@ def check_launch(name: str, code: int) -> None:
     """Raise if a launch reported a CUDA error code."""
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error code {code}")
+
+
+def refuse_grad(name: str, tensors) -> None:
+    """Raise if autograd would record through a kernel's outputs: the
+    kernels write them through raw pointers, so autograd would take them
+    for constants and return wrong gradients."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in tensors
+    ):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the CUDA kernel's outputs carry no "
+            "autograd history"
+        )

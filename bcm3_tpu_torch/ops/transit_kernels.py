@@ -197,7 +197,8 @@ def transit_solve(
     each lane ran, (L,) int32. On CUDA every input must be float32 and
     contiguous; `warp_slots`, a (1,) int64 CUDA tensor, is then increased
     by the trip slots the kernel's warps issued (for the warp efficiency
-    sum(trips) / (32 * slots); the plain version has no warps)."""
+    sum(trips) / (32 * slots); the plain version has no warps). On a CUDA
+    tensor that requires grad it raises: the kernel has no reverse mode."""
     if grid.device.type == "cpu":
         if warp_slots is not None:
             raise ValueError("warp_slots counts the CUDA kernel's warps")
@@ -209,6 +210,8 @@ def transit_solve(
     named = [(k, params[k], (L,)) for k in LANE_PARAMS]
     named += [("dose0", params["dose0"], (P,)), ("grid", grid, (P, S)),
               ("dose_amt", dose_amt, (P, S))]
+    # B2 has no reverse mode yet (ROADMAP B9)
+    build.refuse_grad("transit_solve", [x for _, x, _ in named])
     for name, x, shape in named:
         if x.device != grid.device or x.device.type != "cuda":
             raise ValueError(f"{name} must be on {grid.device} (CUDA), got {x.device}")

@@ -8,7 +8,8 @@ Run from the root of a checkout, with no arguments:
 Phases, each printing its lines before the last:
 
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA, nvcc;
-2. build: both CUDA kernels compiled by nvcc from bcm3_tpu_torch/csrc;
+2. build: the CUDA kernels (B1 with its reverse mode B1T, B2) compiled by
+   nvcc from bcm3_tpu_torch/csrc;
 3. each kernel against its plain PyTorch version at the slice's shapes, on
    inputs made by the slice's own likelihood from prior draws, with
    CUDA-event timings of both and each kernel's bound (the least time the
@@ -23,14 +24,15 @@ Phases, each printing its lines before the last:
    torch.profiler the device's busy time per iteration and its largest
    kernels;
 6. the adapted slice, bench.py's `bench_adapted` protocol on the `one`
-   configuration with proposal adaptation on (100 samples, adaptations at
-   33 and 66, the batched GMM EM on the card): a sampler's run()
-   crosses both boundaries (the protocol's cold sampler before it is cut
-   for time), and one more run() of it, with the adapted proposals
+   configuration with proposal adaptation on (100 samples, the batched GMM
+   EM on the card): a sampler's run() crosses one boundary, after 50
+   samples (bench_adapted's two, at 33 and 66, and the protocol's cold
+   sampler before it are cut for time), and one more run() of it, with the adapted proposals
    and no boundary, gives the wall, the device profile and ESS/s; each
    boundary's seconds are split into the history gather, the EM fits (and
    the eigendecompositions within them) and the proposal build;
-7. the clustered slice, `slice_one_clustered`: the same protocol with
+7. the clustered slice, `slice_one_clustered`: the same protocol at half
+   its depth (50 samples, boundaries after 16 and 32) with
    proposal_type "clustered_covariance" (one spectral clustering of the
    pooled T=1 history per boundary, shared by every chain; each mutate
    assigns the current and the proposed positions to clusters): each
@@ -45,8 +47,9 @@ Phases, each printing its lines before the last:
    ASSIGN_MARGIN of each other, and on at most ASSIGN_SHARE of the rows;
 9. `slice_one_autoblock`: the protocol again with "clustered_autoblock"
    blocking and clustered proposals, at 8 x 1024 chains and 30 samples
-   (adaptations after 10 and 20): it starts with one block per variable and
-   re-blocks at each boundary; the block sizes after each boundary;
+   (adaptations after 10 and 20), without the protocol's cold sampler: it
+   starts with one block per variable and re-blocks at each boundary; the
+   block sizes after each boundary;
 10. `cli_one`, the port's CLI at bench width through its in-memory cores
    (`bcm3_tpu_torch.cli`; this machine has no h5py for the CLI's files): a
    config.txt parsed by the CLI's parser, the sampler built by its factory
@@ -67,8 +70,9 @@ Phases, each printing its lines before the last:
 12. the port on the card (float32, kernels) against the port on the CPU
    (float64 tables, plain versions) for 256 prior draws of each model;
 13. `banana`, the analytic banana target of tests/fixtures/examples at
-   bench.py bench_banana's shape (6 chains x 8192 ensembles, 800 samples
-   thinned by 5, one GMM adaptation after 400, float32): the cold run's
+   bench.py bench_banana's width (6 chains x 8192 ensembles; 400 samples
+   thinned by 5, the bench's 800 cut, one GMM adaptation after 200,
+   float32): the cold run's
    boundary; its T=1 rows and acceptance before the boundary against the
    port's run on the CPU within MCSE_LIMIT standard errors; the distance
    of the rows after it, and of a second run's second half, from the
@@ -77,22 +81,45 @@ Phases, each printing its lines before the last:
    ROADMAP C); evals/s and ESS/s of the second run as bench.py computes
    them;
 14. `multimodal_gaussians` with global covariance proposals (4 chains x
-   1024 ensembles, 2000 samples thinned by 3 (the JAX test's 4000, cut),
-   one adaptation after 1000):
+   1024 ensembles, 1000 samples thinned by 3 (the JAX test's 4000, cut),
+   one adaptation after 250):
    the T=1 share with x1 > 0 against the quadrature mass;
 15. `poppk_models`: `two` and `one_biphasic_uptake` at `one`'s width and
    depth (cold, warm and profiled runs), `two_transit` at one_transit's
-   width cut to TWO_TRANSIT_ITERATIONS iterations and one profiled
-   evaluation, each against the port on the CPU on 256 prior draws
-   (two_transit on TWO_TRANSIT_ORACLE_DRAWS).
+   width in one evaluation and one profiled evaluation, each against the
+   port on the CPU on 256 prior draws (two_transit on
+   TWO_TRANSIT_ORACLE_DRAWS);
+16. `nuts_one`: bench.py bench_nuts's NUTS on `one` (2,048 chains, max tree
+   depth 7, target acceptance 0.9, seed 5, float32; warmup and samples
+   cut): every leaf one gradient evaluation of all chains through B1 and
+   its reverse mode B1T; ESS/s by bench_nuts's formula, divergence rate,
+   mean tree depth, step size, gradient evaluations per second, host
+   reads per transition, and the wall, device busy time, launches per
+   leaf and B1 + B1T's share of a few profiled transitions;
+17. `hmc_one`: HMC on the same target, 2,048 chains, 16 leapfrog steps;
+18. `smc_one`: SMC on the same target with 65,536 particles (the PT
+   headline's width): stages, betas, log evidence;
+19. `vi_one`: VI with the JAX package's defaults (32 samples per ELBO),
+   in float64;
+20. `banana_gradient`: NUTS and HMC on the banana fixture at 8,192 chains
+   held to the quadrature oracle within 4 Monte Carlo standard errors;
+   SMC at 8,192 particles (16 populations) held to the port's CPU run
+   within 4 standard errors, its distance from the oracle logged (its
+   reflection on the prior's bounds moves it off, ROADMAP C);
+21. `gradient_card_vs_cpu`: the card's float32 log-posterior and gradient
+   in z against the CPU's float64 on 256 prior draws of `one`; B1T
+   against its plain version at the NUTS path's width (32,768 lanes) and
+   the PT path's (1,048,576), bit for bit or not, with CUDA-event times,
+   bound and roofline share.
 
 The kernels' launch counters are set to 0 just before each slice of the
-main path (phases 4-7, 9, 10 and 13-15) and read just after it, so the
+main path (phases 4-7, 9, 10 and 13-20) and read just after it, so the
 counts show that each slice itself went through the kernels (`cli_one`
-through both; phases 13-15 run paths that no kernel serves).
+through B1 and B2; phases 13-15 and 20 run paths that no kernel serves;
+phases 16, 17 and 19 through B1 and B1T, phase 18 through B1).
 Any failed check raises, and the script exits non-zero without printing a
 result. The last line is
-{"ok": true, "device": {...}}; the line before it lists the kernels.
+{"ok": true, "device": {...}}; the line before it lists the three kernels.
 JAX is neither needed nor imported.
 """
 
@@ -103,6 +130,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 NUM_PATIENTS = 16
 NUM_TIMEPOINTS = 24
@@ -114,9 +142,13 @@ ORACLE_DRAWS = 256
 # bench.py bench_adapted: NUM_SAMPLES 100, BENCH_ADAPT_TIMES 2, seed 2024
 ADAPTED_SAMPLES = 100
 ADAPT_TIMES = 2
-# 2 histories keep the script, with its clustered slices, inside its time limit
-EM_HISTORIES, EM_ROWS = 2, 2000
-CLUSTERED = dict(proposal_type="clustered_covariance")
+# one history keeps the script, with its clustered slices and the gradient
+# samplers, inside its time limit (it fitted 7, then 2)
+EM_HISTORIES, EM_ROWS = 1, 2000
+# the clustered slice at half bench_adapted's depth, 50 samples with
+# boundaries after 16 and 32 (108 ms an adapted iteration, ROADMAP B6)
+CLUSTERED = dict(proposal_type="clustered_covariance", num_samples=50,
+                 adapt_proposal_samples=16)
 # slice_one_autoblock: 8 x 1024 chains, 30 samples, adaptations after 10, 20
 AUTOBLOCK = dict(
     CLUSTERED, blocking_strategy="clustered_autoblock", num_ensembles=1024, num_samples=30,
@@ -164,16 +196,18 @@ CLI_IS_ROUNDS = 500
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                         "examples")
 # banana: bench.py bench_banana's shape (bench.py:587-620, :683-693), float32
-BANANA = dict(num_chains=6, num_ensembles=8192, num_samples=800, use_every_nth=5,
-              adapt_proposal_samples=400, adapt_proposal_times=1, max_history_size=2000,
+# with 400 samples (the bench's 800, cut for time), the adaptation after 200
+BANANA = dict(num_chains=6, num_ensembles=8192, num_samples=400, use_every_nth=5,
+              adapt_proposal_samples=200, adapt_proposal_times=1, max_history_size=2000,
               seed=7)
 BANANA_BOX = ((-5.0, 5.0), (-5.0, 15.0))  # tests/fixtures/examples/banana/prior.xml
 # the port's CPU run that the card's rows before the boundary are held to
 BANANA_CPU_ENSEMBLES = 64
 # multimodal_gaussians: tests/test_sampler_banana.py:74-95 at 1024 ensembles,
-# cut from 4000 samples to 2000 (its 12,000 iterations took 95 s on the card)
-MULTIMODAL = dict(num_chains=4, num_ensembles=1024, num_samples=2000, use_every_nth=3,
-                  proposal_type="global_covariance", adapt_proposal_samples=1000,
+# cut from 4000 samples to 1000 (its 12,000 iterations took 95 s on the card,
+# 6,000 took 46 s), the adaptation after a quarter of them, as the test's
+MULTIMODAL = dict(num_chains=4, num_ensembles=1024, num_samples=1000, use_every_nth=3,
+                  proposal_type="global_covariance", adapt_proposal_samples=250,
                   adapt_proposal_times=1, max_history_size=4000,
                   adapt_proposal_max_history_samples=2000, seed=99)
 MULTIMODAL_BOX = (-10.0, 10.0)  # tests/fixtures/examples/multimodal_gaussians/prior.xml
@@ -183,13 +217,42 @@ MULTIMODAL_BOX = (-10.0, 10.0)  # tests/fixtures/examples/multimodal_gaussians/p
 MCSE_LIMIT = 4.0
 MOMENT_GROUP = 256
 # poppk_models: two and the biphasic model at `one`'s width and depth,
-# two_transit at one_transit's width: its eager DP5 launches ~400 kernels
-# per trip, 768 trips per evaluation, so its run is cut to this many
-# iterations (after the start-position search)
-TWO_TRANSIT_ITERATIONS = 2
+# two_transit at one_transit's width in one evaluation: its eager DP5
+# launches ~400 kernels per trip, 768 trips per evaluation
 # its card-vs-CPU rows: the CPU's eager DP5 took about 155 s for 256 (all
 # of 4,096 lanes), so two_transit is compared on this many prior draws
 TWO_TRANSIT_ORACLE_DRAWS = 64
+# the gradient and population samplers on `one` (phases 16-19):
+# bench.py bench_nuts's configuration (bench.py:286-358): 2,048 chains, max
+# tree depth 7, target acceptance 0.9, seed 5, its 256 warmup and 256
+# sampling transitions cut to fit the script's time limit
+NUTS_ONE = dict(num_chains=2048, max_tree_depth=7, target_accept=0.9, seed=5)
+NUTS_WARMUP, NUTS_SAMPLES = 50, 30
+HMC_ONE = dict(num_chains=2048, num_leapfrog_steps=16, seed=5)
+HMC_WARMUP, HMC_SAMPLES = 60, 30
+# SMC at the PT headline's width, 8 x 8,192 chains
+SMC_ONE = dict(num_particles=65536, seed=5)
+# VI: the JAX package's defaults (bcm3_tpu/sampler/vi.py:31-36), its 2,000
+# iterations cut to 500, in float64: in float32 a Monte Carlo row whose
+# rate overflows has a NaN gradient, and the ELBO's mean carries it into
+# every parameter within a few steps (ROADMAP C)
+VI_ONE = dict(num_iterations=500, num_mc_samples=32, learning_rate=0.05, num_samples=1000,
+              seed=5)
+# transitions timed, then profiled, from where a run ended; NUTS's
+# profiled trees are cut at this depth
+PROFILED_TRANSITIONS = 2
+PROFILED_DEPTH = 3
+# gradient_card_vs_cpu: prior draws, and the card's float32 against the
+# CPU's float64: the log-posterior within GRAD_RTOL of itself on every row,
+# the gradient within GRAD_RTOL of the row's largest component on at least
+# GRAD_SHARE of the rows
+GRAD_DRAWS = 256
+GRAD_RTOL, GRAD_SHARE = 1e-3, 0.95
+# banana_gradient: chains or particles, and the runs' depths
+BANANA_GRADIENT = 8192
+BANANA_NUTS = dict(num_warmup=60, num_samples=40, max_tree_depth=5, seed=3)
+BANANA_HMC = dict(num_warmup=60, num_samples=60, num_leapfrog_steps=16, seed=1)
+SMC_REPLICATES = 16
 # the device of phases 13-15 (a rehearsal on the CPU sets "cpu")
 CARD = "cuda"
 
@@ -500,10 +563,11 @@ def phase_slice(pk_type, models):
     return dict(res, wall_ms=wall_ms, busy_ms=busy_ms)
 
 
-def adapted_sampler(prior, lik, **override):
+def adapted_sampler(prior, lik, adapt_times=ADAPT_TIMES, **override):
     """bench.py build_sampler(100, 2, 2024, "one", 8192, emit_fixed_only=True)
-    in the port, on the card; the GMM backend "auto" is the batched EM at
-    D = 40. `override`: PTConfig fields that differ from it."""
+    in the port, on the card, with `adapt_times` boundaries; the GMM
+    backend "auto" is the batched EM at D = 40. `override`: PTConfig
+    fields that differ from it."""
     import torch
 
     from bcm3_tpu_torch.sampler import PTConfig, SamplerPT
@@ -513,8 +577,8 @@ def adapted_sampler(prior, lik, **override):
         use_every_nth=USE_EVERY_NTH,
         num_chains=NUM_CHAINS,
         num_ensembles=ENSEMBLES["one"],
-        adapt_proposal_samples=ADAPTED_SAMPLES // (ADAPT_TIMES + 1),
-        adapt_proposal_times=ADAPT_TIMES,
+        adapt_proposal_samples=ADAPTED_SAMPLES // (adapt_times + 1),
+        adapt_proposal_times=adapt_times,
         max_history_size=2000,
         swapping_scheme="deterministic_even_odd",
         seed=2024,
@@ -589,7 +653,7 @@ def ess_stats(res, num_ensembles, seconds):
 
 
 def adapted_protocol(name, models, smi, profile_samples=NUM_SAMPLES["one"], cold=True,
-                     **override):
+                     adapt_times=ADAPT_TIMES, **override):
     """bench_adapted's protocol on the card (bench.py:232-283), with
     `override`'s PTConfig fields: a cold sampler's run() crosses both
     boundaries (skipped with cold=False), a second sampler's run() gives
@@ -603,16 +667,16 @@ def adapted_protocol(name, models, smi, profile_samples=NUM_SAMPLES["one"], cold
 
     prior, lik = models["one"]
     if cold:
-        first = adapted_sampler(prior, lik, **override)
+        first = adapted_sampler(prior, lik, adapt_times, **override)
         res = first.run()
-        check_run(res, first, ADAPT_TIMES)
+        check_run(res, first, adapt_times)
         log_boundaries(f"{name} cold", res, smi)
         del first, res
         torch.cuda.empty_cache()
 
-    warm = adapted_sampler(prior, lik, **override)
+    warm = adapted_sampler(prior, lik, adapt_times, **override)
     res = warm.run()
-    check_run(res, warm, ADAPT_TIMES)
+    check_run(res, warm, adapt_times)
     log_boundaries(f"{name} warm", res, smi)
     boundaries = res["adaptation_breakdown"]
     for p in warm.proposals:
@@ -660,9 +724,11 @@ def adapted_protocol(name, models, smi, profile_samples=NUM_SAMPLES["one"], cold
 def phase_adapted(models, unadapted, smi):
     """bench_adapted on the card: GMM proposals, the batched EM. Its cold
     sampler is left out (its two boundaries took about 130 s of the
-    script's time limit); the warm sampler's boundaries are the first of
-    the script's GMM boundaries."""
-    _, res, _, m = adapted_protocol("adapted", models, smi, cold=False)
+    script's time limit), and its warm sampler crosses one boundary, after
+    50 of the 100 samples, where bench_adapted's crosses two (each takes
+    about a minute, torch.linalg.eigh most of it, and the second runs the
+    same path as the first)."""
+    _, res, _, m = adapted_protocol("adapted", models, smi, cold=False, adapt_times=1)
     log(f"adapted against unadapted `one`: wall {m['wall_ms']:.4f} against "
         f"{unadapted['wall_ms']:.4f} ms, busy {m['busy_ms']} against "
         f"{unadapted['busy_ms']} ms per iteration")
@@ -741,8 +807,10 @@ def phase_autoblock(models, smi):
     run starts with one block per variable, and each boundary re-blocks
     the variables from the pooled T=1 history's within-cluster
     correlations."""
+    # without the protocol's cold sampler (its boundaries run the same path)
     warm, res, _, m = adapted_protocol(
-        "autoblock", models, smi, profile_samples=CLUSTERED_PROFILE_SAMPLES, **AUTOBLOCK
+        "autoblock", models, smi, profile_samples=CLUSTERED_PROFILE_SAMPLES, cold=False,
+        **AUTOBLOCK
     )
     blocks = [b["block_sizes"] for b in m["boundaries"]]
     log(f"autoblock: {warm.num_variables} blocks of 1 before the first boundary; after the "
@@ -794,13 +862,14 @@ def banana_oracle():
     return mean, sd
 
 
-def oracle_distance(name, x, smi):
-    """Mean and sd of each coordinate of the T=1 rows x (S, E, D) against
-    the banana oracle, with their Monte Carlo standard errors (a mean's:
-    the spread of the per-ensemble means over sqrt(E); an sd's: that of
-    the sds of groups of MOMENT_GROUP ensembles). Logged, not asserted:
-    after a mixture adaptation the sampler, as the JAX package's, misses
-    the oracle (ROADMAP C)."""
+def oracle_distance(name, x, smi, asserted=False):
+    """Mean and sd of each coordinate of the rows x (S, E, D) against the
+    banana oracle, with their Monte Carlo standard errors (a mean's: the
+    spread of the per-ensemble (or per-chain) means over sqrt(E); an
+    sd's: that of the sds of groups of MOMENT_GROUP ensembles); returns
+    the z of the means, then of the sds. The caller asserts them where
+    `asserted`; after a mixture adaptation PT, as the JAX package's, misses
+    the oracle (ROADMAP C), and the distance is only logged."""
     import numpy as np
 
     S, E, D = x.shape
@@ -810,11 +879,13 @@ def oracle_distance(name, x, smi):
     group_sd = groups.reshape(E // MOMENT_GROUP, -1, D).std(axis=1)
     sd, sd_se = group_sd.mean(axis=0), group_sd.std(axis=0, ddof=1) / np.sqrt(len(group_sd))
     exact_mean, exact_sd = banana_oracle()
+    z_mean, z_sd = (mean - exact_mean) / mean_se, (sd - exact_sd) / sd_se
+    verdict = f"limit {MCSE_LIMIT}" if asserted else "not asserted (ROADMAP C)"
     log(f"{name}: mean {mean.tolist()} +- {mean_se.tolist()} (oracle {exact_mean.tolist()}, "
-        f"z {((mean - exact_mean) / mean_se).tolist()}); sd {sd.tolist()} +- "
-        f"{sd_se.tolist()} (oracle {exact_sd.tolist()}, z "
-        f"{((sd - exact_sd) / sd_se).tolist()}); not asserted (ROADMAP C); {S} samples x "
-        f"{E} ensembles; on {smi}")
+        f"z {z_mean.tolist()}); sd {sd.tolist()} +- {sd_se.tolist()} (oracle "
+        f"{exact_sd.tolist()}, z {z_sd.tolist()}); {verdict}; {S} samples x {E} ensembles "
+        f"or chains; on {smi}")
+    return np.concatenate([z_mean, z_sd])
 
 
 def run_to_the_boundary(sampler):
@@ -983,11 +1054,12 @@ def phase_multimodal(smi):
 
 
 def phase_poppk_models(workdir, smi):
-    """The other PopPK models through SamplerPT on the card: `two` and
-    `one_biphasic_uptake` at `one`'s width and depth (cold run, warm wall
-    per iteration, busy share under the profiler), `two_transit` at
-    one_transit's width cut to TWO_TRANSIT_ITERATIONS iterations (one cold
-    run; the busy share of one profiled evaluation); then each against the
+    """The other PopPK models on the card: `two` and `one_biphasic_uptake`
+    through SamplerPT at `one`'s width and depth (cold run, warm wall per
+    iteration, busy share under the profiler); `two_transit` at
+    one_transit's width in one evaluation of prior draws (CUDA events), and
+    one more under the profiler for its busy share (its sampler's cold run,
+    76 s of start-position search, is cut for time); then each against the
     port on the CPU on ORACLE_DRAWS prior draws (two_transit on
     TWO_TRANSIT_ORACLE_DRAWS)."""
     import numpy as np
@@ -1002,44 +1074,47 @@ def phase_poppk_models(workdir, smi):
         prior, lik = build_model(pk_type, workdir)
         transit = pk_type == "two_transit"
         E = ENSEMBLES["one_transit" if transit else "one"]
-        cfg = PTConfig(
-            num_samples=TWO_TRANSIT_ITERATIONS if transit else NUM_SAMPLES["one"],
-            use_every_nth=1 if transit else USE_EVERY_NTH, num_chains=NUM_CHAINS,
-            num_ensembles=E, adapt_proposal_samples=0, adapt_proposal_times=0,
-            swapping_scheme="deterministic_even_odd", seed=7, emit_dtype=torch.float32,
-            emit_fixed_only=True, device=CARD, dtype=torch.float32,
-        )
-        sampler = SamplerPT(prior, lik, cfg)
-        res = sampler.run()
-        torch.cuda.synchronize()
-        iterations = cfg.num_samples * cfg.use_every_nth
-        assert res["samples"].shape == (cfg.num_samples * E, 1, prior.num_variables)
-        assert np.isfinite(res["log_prior"] + res["log_likelihood"]).all()
-        mut, _ = sampler.acceptance_rates(sampler.state)
-        line = (f"{pk_type}: {NUM_CHAINS} x {E} chains, {iterations} iterations, cold run "
-                f"{res['evaluations']} evaluations in {res['elapsed_seconds']:.3f} s = "
-                f"{res['evals_per_second']:.1f} evals/s ({res['sampling_seconds']:.3f} s of "
-                f"iterations); T=1 mutate acceptance {mut[-1]:.4f}")
         if transit:
-            # one evaluation of the population (its kernels warm from the
-            # run): CUDA events, then one more under the profiler
-            x = sampler.state.x
+            # one evaluation of the population, then one more under the profiler
+            gen = torch.Generator(device=CARD).manual_seed(7)
+            x = prior.sample(gen, (NUM_CHAINS * E,), torch.float32)
             start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-            lik.log_prob_batched(x)
+            lp = lik.log_prob_batched(x)
             stop.record()
             torch.cuda.synchronize()
             ms = start.elapsed_time(stop)
+            finite = float(torch.isfinite(lp).double().mean())
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 lik.log_prob_batched(x)
                 torch.cuda.synchronize()
             busy = sum(e.time_range.elapsed_us() for e in prof.events()
                        if e.device_type == DeviceType.CUDA) / 1e3
-            line += (f"; one evaluation of {NUM_CHAINS * E} chains x {NUM_PATIENTS} patients: "
-                     f"{ms:.1f} ms (CUDA events), device busy {busy:.1f} ms under the profiler, "
-                     f"idle share {1.0 - busy / ms:.4f}")
+            line = (f"{pk_type}: one evaluation of {NUM_CHAINS * E} prior draws x "
+                    f"{NUM_PATIENTS} patients: {ms:.1f} ms (CUDA events), {finite:.4f} of "
+                    f"them finite, device busy {busy:.1f} ms under the profiler, idle share "
+                    f"{1.0 - busy / ms:.4f}")
             evals[pk_type] = NUM_CHAINS * E / ms * 1e3
+            del x, lp
         else:
+            cfg = PTConfig(
+                num_samples=NUM_SAMPLES["one"], use_every_nth=USE_EVERY_NTH,
+                num_chains=NUM_CHAINS, num_ensembles=E, adapt_proposal_samples=0,
+                adapt_proposal_times=0, swapping_scheme="deterministic_even_odd", seed=7,
+                emit_dtype=torch.float32, emit_fixed_only=True, device=CARD,
+                dtype=torch.float32,
+            )
+            sampler = SamplerPT(prior, lik, cfg)
+            res = sampler.run()
+            torch.cuda.synchronize()
+            iterations = cfg.num_samples * cfg.use_every_nth
+            assert res["samples"].shape == (cfg.num_samples * E, 1, prior.num_variables)
+            assert np.isfinite(res["log_prior"] + res["log_likelihood"]).all()
+            mut, _ = sampler.acceptance_rates(sampler.state)
+            line = (f"{pk_type}: {NUM_CHAINS} x {E} chains, {iterations} iterations, cold run "
+                    f"{res['evaluations']} evaluations in {res['elapsed_seconds']:.3f} s = "
+                    f"{res['evals_per_second']:.1f} evals/s ({res['sampling_seconds']:.3f} s "
+                    f"of iterations); T=1 mutate acceptance {mut[-1]:.4f}")
             warm = sampler.run()
             wall_ms = warm["sampling_seconds"] * 1e3 / iterations
             # ~1,500 launches an iteration: the profiled run is shorter, as
@@ -1053,12 +1128,12 @@ def phase_poppk_models(workdir, smi):
                      f"per iteration (under the profiler), idle share {idle}; largest kernels "
                      + ", ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in top[:4]))
             evals[pk_type] = NUM_CHAINS * E / wall_ms * 1e3
+            del sampler, res
         log(line + f"; on {smi}")
         draws = TWO_TRANSIT_ORACLE_DRAWS if transit else ORACLE_DRAWS
         xs = prior.sample(torch.Generator().manual_seed(5), (draws,), torch.float64)
         card = lik.log_prob_batched(xs.to(CARD, torch.float32)).double().cpu().numpy()
         card_vs_cpu(f"card vs CPU {pk_type}", pk_type, lik, xs, card)
-        del sampler, res
         torch.cuda.empty_cache()
     return evals
 
@@ -1452,6 +1527,475 @@ def card_vs_cpu(name, pk_type, lik, xs, card):
     assert within >= share
 
 
+# ---------------------------------------------------------------------------
+# The gradient and population samplers (phases 16-21)
+
+
+def sampler_profile(step, transitions, profiled=True):
+    """`step()` (one transition from a fixed state with fixed draws, so the
+    work is the same each call) once to warm up, then `transitions` times:
+    the wall per call (host clock, synchronized); with `profiled`, as many
+    times more under torch.profiler: the device's busy time per call
+    (events inside the span), the launches, B1's and B1T's share of the
+    busy time. Busy is None where the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(transitions):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3 / transitions
+    if not profiled:
+        return dict(wall_ms=wall_ms)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke.transitions"):
+            for _ in range(transitions):
+                step()
+            torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and e.name != "chip_smoke.transitions"]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3 / transitions
+    if busy <= 0:
+        return dict(wall_ms=wall_ms, busy_ms=None, launches=None, b1_ms=None, b1t_ms=None)
+
+    def share(name):
+        return sum(e.time_range.elapsed_us() for e in device
+                   if name in e.name) / 1e3 / transitions
+
+    return dict(wall_ms=wall_ms, busy_ms=busy, launches=len(device) / transitions,
+                b1_ms=share("poppk_propagate_kernel"),
+                b1t_ms=share("poppk_propagate_adjoint_kernel"))
+
+
+def log_profile(name, prof, unit, per_unit, smi):
+    """One line of a sampler_profile result: per transition and per `unit`
+    (leaf, leapfrog step) of which there are `per_unit` per transition."""
+    if prof["busy_ms"] is None:
+        log(f"{name}: wall {prof['wall_ms']:.3f} ms per transition; device busy not measured "
+            f"(the profiler saw no device time); on {smi}")
+        return
+    idle = 1.0 - prof["busy_ms"] / prof["wall_ms"]
+    log(f"{name}: wall {prof['wall_ms']:.3f} ms per transition, device busy "
+        f"{prof['busy_ms']:.3f} ms (idle share {idle:.4f}); {per_unit:.2f} {unit}s per "
+        f"transition, {prof['launches'] / per_unit:.1f} device launches per {unit}, wall "
+        f"{prof['wall_ms'] / per_unit:.4f} ms per {unit}; B1 {prof['b1_ms']:.4f} ms and B1T "
+        f"{prof['b1t_ms']:.4f} ms of the busy time per transition, the rest "
+        f"{prof['busy_ms'] - prof['b1_ms'] - prof['b1t_ms']:.3f} ms (eager elementwise work, "
+        f"the sampler's own); on {smi}")
+
+
+def nuts_ess(res, seconds):
+    """bench.py bench_nuts's ESS: per-chain ESS of the first 256 chains'
+    traces (FFT-batched), mean over variables, times the chains, over the
+    sampling loop's seconds. A chain that never moved (it started at a
+    point of -inf density, see phase_nuts_one, or rejected every proposal,
+    see phase_hmc_one) has a constant trace, which the formula counts as S
+    effective samples; the same ESS over the chains that moved is given
+    beside it, and the count of those that did not."""
+    import numpy as np
+
+    from bcm3_tpu_torch.analysis import effective_sample_size_batched
+
+    x = res["samples_per_chain"]  # (S, C, D)
+    S, C, D = x.shape
+    stuck = (x == x[:1]).all(axis=(0, 2))
+    Csub = min(C, 256)
+    ess = effective_sample_size_batched(
+        np.ascontiguousarray(x[:, :Csub, :].reshape(S, Csub * D), dtype=np.float64)
+    ).reshape(Csub, D)
+    per_var = ess.mean(axis=0)
+    moving = ess[~stuck[:Csub]].mean(axis=0)
+    return dict(ess_per_chain_mean=float(per_var.mean()),
+                ess_per_sec=float(per_var.mean()) * C / seconds,
+                ess_min_var_per_sec=float(per_var.min()) * C / seconds,
+                stuck_chains=int(stuck.sum()),
+                moving_ess_per_sec=float(moving.mean()) * int((~stuck).sum()) / seconds)
+
+
+def check_gradient_run(name, res, S, C, D, stuck_limit=0.1):
+    """The emitted rows of a NUTS or HMC run on `one`: shapes, finite
+    positions, and the chains that never moved. The samplers start from
+    prior draws, as the JAX package's do; a draw whose rate lies beyond
+    float32 (about 3% of them) has density -inf and, its gradient NaN, a
+    chain started there may never leave (ROADMAP C), its stored densities
+    -inf. At most `stuck_limit` of the chains may stay where they were
+    through the stored samples (NUTS); for HMC the count is only logged
+    (phase_hmc_one). Returns the ESS of nuts_ess."""
+    import numpy as np
+
+    assert res["samples"].shape == (S * C, 1, D)
+    assert np.isfinite(res["samples"]).all()
+    finite = np.isfinite(res["log_prior"] + res["log_likelihood"]).reshape(S, C)
+    ess = nuts_ess(res, res["sampling_seconds"])
+    log(f"{name}: {ess['stuck_chains']} of {C} chains never moved, "
+        f"{int((~finite.all(axis=0)).sum())} chains with -inf stored densities")
+    assert finite.all(axis=0).mean() >= 0.9
+    assert stuck_limit is None or ess["stuck_chains"] <= stuck_limit * C
+    return ess
+
+
+def phase_nuts_one(models, smi):
+    """bench.py bench_nuts on the card: NUTS on `one`, 2,048 chains, max tree
+    depth 7, target acceptance 0.9, seed 5, float32, every leaf one
+    gradient evaluation through B1 and B1T; warmup and samples cut (§4)."""
+    import torch
+
+    from bcm3_tpu_torch.ops import poppk_kernels
+    from bcm3_tpu_torch.sampler import NUTSConfig, SamplerNUTS
+
+    prior, lik = models["one"]
+    cfg = NUTSConfig(num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES, device=CARD,
+                     dtype=torch.float32, **NUTS_ONE)
+    s = SamplerNUTS(prior, lik, cfg)
+    res = s.run()
+    C, S = cfg.num_chains, cfg.num_samples
+    ess = check_gradient_run("nuts_one", res, S, C, prior.num_variables)
+    evals = res["gradient_evaluations_per_transition"]
+    grad_per_s = evals * S / res["sampling_seconds"]
+    log(f"nuts_one: {C} chains, {cfg.num_warmup} warmup + {S} sampling transitions, run "
+        f"{res['elapsed_seconds']:.3f} s, sampling {res['sampling_seconds']:.3f} s; ESS per "
+        f"chain {ess['ess_per_chain_mean']:.4f} of {S}, ESS/s {ess['ess_per_sec']:.1f} (worst "
+        f"variable {ess['ess_min_var_per_sec']:.1f}; over the chains that moved "
+        f"{ess['moving_ess_per_sec']:.1f}); divergence rate "
+        f"{res['divergences'] / (S * C):.5f}; mean tree depth {res['mean_tree_depth']:.4f}; "
+        f"step size {res['step_size']:.5g}; {evals:.2f} gradient evaluations (of all {C} "
+        f"chains) and {res['host_syncs_per_transition']:.2f} host reads per transition, "
+        f"{grad_per_s:.1f} gradient evaluations/s = {grad_per_s * C:.1f} chain gradients/s; "
+        f"launches so far B1 {poppk_kernels.propagate_intervals_one_compartment.launches}, "
+        f"B1T {poppk_kernels.propagate_intervals_adjoint.launches}; on {smi}")
+    # more transitions from where the run ended, with fixed draws: the wall
+    # of full trees; then, for the profile (whose trace of a full tree's
+    # ~85,000 device events takes minutes to process), trees cut at depth
+    # PROFILED_DEPTH from the same state: a leaf runs the same operations
+    # at any depth
+    z, lp, g = s.state
+    D = z.shape[1]
+    draws = s.draws(C, D, torch.float32)
+    before = s.target.gradient_evaluations
+    full = sampler_profile(
+        lambda: s.transition(z, lp, g, s.step_size, s.inv_mass, *draws), PROFILED_TRANSITIONS,
+        profiled=False)
+    leaves = (s.target.gradient_evaluations - before) / (PROFILED_TRANSITIONS + 1)
+    short = SamplerNUTS(prior, lik, dataclasses.replace(cfg, max_tree_depth=PROFILED_DEPTH))
+    draws = short.draws(C, D, torch.float32)
+    before = short.target.gradient_evaluations
+    prof = sampler_profile(
+        lambda: short.transition(z, lp, g, s.step_size, s.inv_mass, *draws),
+        PROFILED_TRANSITIONS)
+    short_leaves = (short.target.gradient_evaluations - before) / (2 * PROFILED_TRANSITIONS + 1)
+    log(f"nuts_one: full trees from the run's end: {leaves:.1f} leaves, wall "
+        f"{full['wall_ms']:.3f} ms a transition = {full['wall_ms'] / leaves:.4f} ms a leaf")
+    log_profile(f"nuts_one profile (trees cut at depth {PROFILED_DEPTH})", prof, "leaf",
+                short_leaves, smi)
+    return dict(res=res, ess=ess, profile=prof, leaves=short_leaves, grad_per_s=grad_per_s,
+                leaf_wall_ms=full["wall_ms"] / leaves)
+
+
+def phase_hmc_one(models, smi):
+    """HMC on `one` at bench_nuts's width: 2,048 chains, 16 leapfrog steps,
+    float32; warmup and samples cut (§4).
+
+    Its ESS is not a usable metric. The JAX package's HMC adapts one step
+    size for all chains to their mean acceptance; chains that started in
+    the prior's tails reject every proposal, pull the mean down and so the
+    step size too, and over half of them never move (ROADMAP C).
+    bench_nuts's formula counts each of them as S effective samples. The
+    phase reports that ESS beside the ESS over the chains that moved and
+    the count that did not, and claims neither; what it measures is the
+    leapfrog's throughput."""
+    import torch
+
+    from bcm3_tpu_torch.sampler import HMCConfig, SamplerHMC
+
+    prior, lik = models["one"]
+    cfg = HMCConfig(num_warmup=HMC_WARMUP, num_samples=HMC_SAMPLES, device=CARD,
+                    dtype=torch.float32, **HMC_ONE)
+    s = SamplerHMC(prior, lik, cfg)
+    res = s.run()
+    C, S = cfg.num_chains, cfg.num_samples
+    ess = check_gradient_run("hmc_one", res, S, C, prior.num_variables, stuck_limit=None)
+    assert 0.0 < res["accept_rate"] <= 1.0
+    steps_per_s = res["gradient_evaluations"] / res["sampling_seconds"]
+    log(f"hmc_one: {C} chains, {cfg.num_leapfrog_steps} leapfrog steps, {cfg.num_warmup} "
+        f"warmup + {S} sampling iterations, run {res['elapsed_seconds']:.3f} s, sampling "
+        f"{res['sampling_seconds']:.3f} s; acceptance {res['accept_rate']:.4f}, step size "
+        f"{res['step_size']:.5g}; ESS per chain {ess['ess_per_chain_mean']:.4f} of {S}, ESS/s "
+        f"{ess['ess_per_sec']:.1f} by bench_nuts's formula, {ess['moving_ess_per_sec']:.1f} "
+        f"over the {C - ess['stuck_chains']} chains that moved (neither usable: phase_hmc_one); "
+        f"{steps_per_s:.1f} leapfrog steps/s = "
+        f"{steps_per_s * C:.1f} chain gradients/s; on {smi}")
+    z, lp, g = s.state
+    draws = s.draws(C, z.shape[1], torch.float32)
+    prof = sampler_profile(lambda: s.step(z, lp, g, s.step_size, s.inv_mass, *draws),
+                           PROFILED_TRANSITIONS)
+    log_profile("hmc_one profile", prof, "leapfrog step", cfg.num_leapfrog_steps, smi)
+    return dict(res=res, ess=ess, profile=prof, steps_per_s=steps_per_s)
+
+
+def phase_smc_one(models, smi):
+    """SMC on `one` with 65,536 particles (the PT headline's 8 x 8,192
+    chains), float32: every mutation sweep scores the population through
+    log_prob_batched, B1 on the card."""
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch.sampler import SamplerSMC, SMCConfig
+
+    prior, lik = models["one"]
+    cfg = SMCConfig(device=CARD, dtype=torch.float32, **SMC_ONE)
+    res = SamplerSMC(prior, lik, cfg).run()
+    assert res["samples"].shape == (cfg.num_particles, 1, prior.num_variables)
+    assert res["betas"][-1] == 1.0 and np.isfinite(res["log_marginal_likelihood"])
+    assert np.isfinite(res["log_prior"] + res["log_likelihood"]).all()
+    evals = cfg.num_particles * (1 + cfg.mutation_steps * res["stages"])
+    log(f"smc_one: {cfg.num_particles} particles, {res['stages']} stages, betas "
+        f"{[round(b, 6) for b in res['betas']]}, log evidence "
+        f"{res['log_marginal_likelihood']:.4f}, last stage's acceptance "
+        f"{res['acceptance'][-1]:.4f}; {res['elapsed_seconds']:.3f} s = "
+        f"{evals / res['elapsed_seconds']:.1f} evals/s; on {smi}")
+    return dict(res=res, evals_per_second=evals / res["elapsed_seconds"])
+
+
+def phase_vi_one(models, smi):
+    """VI on `one` with the JAX package's defaults (32 Monte Carlo samples
+    per ELBO, Adam at 0.05, 1,000 draws), float64 (B1 and B1T's float64
+    variants), iterations cut (§4)."""
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch.sampler import SamplerVI, VIConfig
+
+    prior, lik = models["one"]
+    cfg = VIConfig(device=CARD, dtype=torch.float64, **VI_ONE)
+    res = SamplerVI(prior, lik, cfg).run()
+    assert res["samples"].shape == (cfg.num_samples, 1, prior.num_variables)
+    assert np.isfinite(res["elbo"]) and np.isfinite(res["samples"]).all()
+    log(f"vi_one: {cfg.num_iterations} Adam steps of {cfg.num_mc_samples} samples, ELBO "
+        f"{res['elbo']:.3f}, fit {res['fit_seconds']:.3f} s = "
+        f"{cfg.num_iterations / res['fit_seconds']:.1f} gradient evaluations/s; "
+        f"mean sigma {float(np.exp(res['log_sigma']).mean()):.4f}; on {smi}")
+    return dict(res=res)
+
+
+def b1t_inputs(models, rows, gen):
+    """B1T's inputs as the NUTS path gives them: the posterior's gradient of
+    `rows` prior draws on the card, with the gradients flowing into B1's
+    outputs captured on their way to B1T."""
+    import torch
+
+    from bcm3_tpu_torch.likelihoods import poppk
+    from bcm3_tpu_torch.ops.poppk_kernels import PropagateOneCompartment
+    from bcm3_tpu_torch.sampler.hmc import LogPosterior
+
+    prior, lik = models["one"]
+    target = LogPosterior(prior, lik)
+    z = target.reparam.from_x(prior.sample(gen, (rows,), torch.float32))
+    seen = {}
+
+    def capture(ka, ke, kel, *data):
+        gut, cen = PropagateOneCompartment.apply(ka, ke, kel, *data)
+        seen.update(args=(ka.detach(), ke.detach(), kel.detach(), data[1]),
+                    out=(gut.detach(), cen.detach()))
+        gut.register_hook(lambda t: seen.__setitem__("grad_gut", t))
+        cen.register_hook(lambda t: seen.__setitem__("grad_cen", t))
+        return gut, cen
+
+    function = poppk.PropagateOneCompartment
+    poppk.PropagateOneCompartment = types.SimpleNamespace(apply=capture)
+    try:
+        target.value_and_grad(z)
+    finally:
+        poppk.PropagateOneCompartment = function
+    return (*seen["args"], *seen["out"], seen["grad_gut"].contiguous(),
+            seen["grad_cen"].contiguous())
+
+
+def b1t_against_plain(args, smi):
+    """B1T against its plain version on the card: bit for bit on the lanes
+    where both are finite (the kernel is built without FMA contraction and
+    sums in the plain version's order), CUDA-event times of both, the
+    bound and the roofline share."""
+    import torch
+
+    from bcm3_tpu_torch.ops.poppk_kernels import (
+        propagate_intervals_adjoint as b1t,
+        propagate_intervals_adjoint_plain as b1t_plain,
+    )
+
+    got = b1t(*args)
+    ref = b1t_plain(*args)
+    torch.cuda.synchronize()
+    B, P = args[0].shape
+    K = args[4].shape[0]
+    fin = torch.ones_like(ref[0], dtype=torch.bool)
+    for r in ref:
+        fin &= torch.isfinite(r)
+    for g in got:
+        fin &= torch.isfinite(g)
+    assert fin.double().mean().item() > 0.9, "B1T: too few finite lanes"
+    identical = all(torch.equal(g[fin], r[fin]) for g, r in zip(got, ref))
+    same_set = all(torch.equal(torch.isfinite(g), torch.isfinite(r)) for g, r in zip(got, ref))
+    err = max((g - r).abs()[fin].max().item() for g, r in zip(got, ref))
+    rel = max(((g - r).abs()[fin] / (r.abs()[fin] + 1e-30)).max().item()
+              for g, r in zip(got, ref))
+    assert same_set, "B1T: finite sets differ from the plain version's"
+    assert identical, f"B1T differs from its plain version: max abs err {err}, rel {rel}"
+    ms = cuda_ms(lambda: b1t(*args), 50)
+    plain_ms = cuda_ms(lambda: b1t_plain(*args), 10)
+    # the bound: B1's reverse mode reads the two incoming gradients (K x B x
+    # P each) and B1's inputs (the three rates, the initial doses, the
+    # intervals, the P x K doses) once and writes the three gradients; per
+    # lane ~30 float operations of set-up and chain rule and 12 per
+    # interval (csrc/poppk_propagate.cu, B1T)
+    nbytes = (2 * K * B * P + 3 * B * P + P * (K + 2)) * 4 + 3 * B * P * 4
+    bound, by = bound_ms(B * P * (30 + 12 * (K - 1)), nbytes)
+    # what the kernel moves: it reads the saved outputs of intervals 0 to
+    # K-2 besides the gradients in place of recomputing the forward
+    kernel_bytes = ((4 * K - 2) * B * P + 3 * B * P + P) * 4 + 3 * B * P * 4
+    log(f"B1T poppk_propagate_adjoint B={B} P={P} K={K} ({B * P} lanes): bit for bit "
+        f"{identical} (asserted; max abs err {err:.3e}, max rel err {rel:.3e}); kernel "
+        f"{ms:.4f} ms a call (CUDA events), plain {plain_ms:.4f} ms; bound {bound:.4f} ms by "
+        f"{by} ({nbytes} bytes), roofline share {bound / ms:.3f}; the kernel's own traffic "
+        f"{kernel_bytes} bytes, {kernel_bytes / PEAK_BYTES * 1e3:.4f} ms at the memory rate, "
+        f"share {kernel_bytes / PEAK_BYTES * 1e3 / ms:.3f}; on {smi}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                bit_for_bit=identical)
+
+
+def phase_gradient_card_vs_cpu(models, smi):
+    """The card's float32 log-posterior and gradient in z (through B1 and
+    B1T) against the port's CPU float64 (plain versions) on GRAD_DRAWS
+    prior draws; then B1T against its plain version at the NUTS path's
+    width (2,048 chains x 16 patients) and at the PT path's (65,536)."""
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch.sampler.hmc import LogPosterior
+
+    prior, lik = models["one"]
+    target = LogPosterior(prior, lik)
+    x = prior.sample(torch.Generator().manual_seed(5), (GRAD_DRAWS,), torch.float64)
+    z = target.reparam.from_x(x)
+    v_cpu, g_cpu = (a.numpy() for a in target.value_and_grad(z))
+    v, g = (a.double().cpu().numpy() for a in target.value_and_grad(z.to(CARD, torch.float32)))
+    # rows whose rates fit in float32 (a heavy-tailed population sd can put
+    # a rate beyond it: -inf on the card, finite in float64)
+    params, _, _ = lik.model._patient_params(x)
+    fits = np.ones(len(x), dtype=bool)
+    for p in params.values():
+        fits &= (p.reshape(len(x), -1).abs().numpy() < np.finfo(np.float32).max).all(axis=1)
+    both = fits & np.isfinite(v_cpu) & np.isfinite(v)
+    flips = int((np.isfinite(v_cpu) != np.isfinite(v))[fits].sum())
+    rel_v = np.abs(v[both] - v_cpu[both]) / np.abs(v_cpu[both])
+    # each row's gradient against its largest component (float32 rounding
+    # of a sum of ~400 terms of both signs)
+    norm = np.abs(g_cpu[both]).max(axis=1)
+    rel_g = np.abs(g[both] - g_cpu[both]).max(axis=1) / norm
+    ok_g = float((rel_g <= GRAD_RTOL).mean())
+    log(f"gradient card vs CPU on `one`: {int(both.sum())}/{len(x)} rows finite on both "
+        f"({int((~fits).sum())} with rates beyond float32), {flips} finite-set flips (limit 0); "
+        f"log-posterior max rel err {rel_v.max():.3e} (limit {GRAD_RTOL}); gradient max rel err "
+        f"{rel_g.max():.3e}, median {np.median(rel_g):.3e}, {ok_g:.4f} of rows within "
+        f"{GRAD_RTOL} of the row's largest component (limit {GRAD_SHARE}); on {smi}")
+    assert both.sum() >= len(x) // 4 and flips == 0
+    assert rel_v.max() <= GRAD_RTOL and ok_g >= GRAD_SHARE
+    gen = torch.Generator(device=CARD).manual_seed(6)
+    out = {}
+    for name, rows in (("nuts", NUTS_ONE["num_chains"]), ("pt", NUM_CHAINS * ENSEMBLES["one"])):
+        out[name] = b1t_against_plain(b1t_inputs(models, rows, gen), smi)
+    return out
+
+
+def smc_replicates(prior, lik, device, dtype, seeds):
+    """Means, sds and log evidences of independent SMC populations."""
+    import numpy as np
+
+    from bcm3_tpu_torch.sampler import SamplerSMC, SMCConfig
+
+    rows = []
+    for seed in seeds:
+        res = SamplerSMC(prior, lik, SMCConfig(num_particles=BANANA_GRADIENT, seed=seed,
+                                               device=device, dtype=dtype)).run()
+        x = res["samples"][:, 0, :].astype(np.float64)
+        rows.append(np.concatenate([x.mean(axis=0), x.std(axis=0),
+                                    [res["log_marginal_likelihood"]]]))
+    return np.array(rows)
+
+
+def banana_log_evidence():
+    """log of the banana likelihood's mean over the uniform prior box
+    (sd1 2, sd2 1, normalized), by the trapezoid rule."""
+    import numpy as np
+
+    (lo1, hi1), (lo2, hi2) = BANANA_BOX
+    n = 2001
+    x1, x2 = np.linspace(lo1, hi1, n), np.linspace(lo2, hi2, n)
+    X1, X2 = np.meshgrid(x1, x2, indexing="ij")
+    lik = np.exp(-0.5 * (X1 / 2.0) ** 2 - 0.5 * (X2 - (X1 + 3.0 * X1 + (1.0 - X1) ** 2)) ** 2)
+    lik /= 2.0 * 2.0 * np.pi  # sd1 * sd2 * 2 pi
+    w = np.ones(n)
+    w[[0, -1]] = 0.5
+    integral = (np.outer(w, w) * lik).sum() * (x1[1] - x1[0]) * (x2[1] - x2[0])
+    return float(np.log(integral / ((hi1 - lo1) * (hi2 - lo2))))
+
+
+def phase_banana_gradient(smi):
+    """NUTS, HMC and SMC on the banana fixture at 8,192 chains or particles
+    (float32), each held to the quadrature oracle within MCSE_LIMIT
+    standard errors; SMC's oracle distance is logged and its populations
+    are held to the port's CPU run (float64) instead: its reflection on the
+    prior's bounds, the JAX package's, moves it off the oracle (ROADMAP C,
+    tests/test_torch_smc.py)."""
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch.sampler import HMCConfig, NUTSConfig, SamplerHMC, SamplerNUTS
+
+    prior, lik = analytic_model("banana")
+    kw = dict(num_chains=BANANA_GRADIENT, device=CARD, dtype=torch.float32)
+    out = {}
+    for name, cls, cfg in (
+        ("NUTS", SamplerNUTS, NUTSConfig(**BANANA_NUTS, **kw)),
+        ("HMC", SamplerHMC, HMCConfig(**BANANA_HMC, **kw)),
+    ):
+        t = time.perf_counter()
+        res = cls(prior, lik, cfg).run()
+        seconds = time.perf_counter() - t
+        extra = (f"mean tree depth {res['mean_tree_depth']:.3f}, {res['divergences']} "
+                 f"divergences" if name == "NUTS" else f"acceptance {res['accept_rate']:.4f}")
+        log(f"banana {name}: {BANANA_GRADIENT} chains, {cfg.num_warmup} + {cfg.num_samples} "
+            f"transitions in {seconds:.3f} s, step size {res['step_size']:.5g}, {extra}")
+        z = oracle_distance(f"banana {name} against the oracle", res["samples_per_chain"],
+                            smi, asserted=True)
+        assert np.all(np.abs(z) <= MCSE_LIMIT), f"banana {name} misses the oracle: z {z}"
+        out[name] = z
+    seeds = range(1, SMC_REPLICATES + 1)
+    t = time.perf_counter()
+    card = smc_replicates(prior, lik, CARD, torch.float32, seeds)
+    seconds = time.perf_counter() - t
+    cpu = smc_replicates(prior, lik, "cpu", torch.float64, [s + 1000 for s in seeds])
+    exact_mean, exact_sd = banana_oracle()
+    exact = np.concatenate([exact_mean, exact_sd, [banana_log_evidence()]])
+    R = len(card)
+    se = card.std(axis=0, ddof=1) / np.sqrt(R)
+    z_oracle = (card.mean(axis=0) - exact) / se
+    z_cpu = (card.mean(axis=0) - cpu.mean(axis=0)) / np.sqrt(
+        se**2 + cpu.var(axis=0, ddof=1) / R)
+    log(f"banana SMC: {R} populations of {BANANA_GRADIENT} particles in {seconds:.3f} s; "
+        f"mean, sd and log evidence {np.round(card.mean(axis=0), 5).tolist()} +- "
+        f"{np.round(se, 5).tolist()}; against the oracle {np.round(exact, 5).tolist()} z "
+        f"{np.round(z_oracle, 3).tolist()} (not asserted: the reflection, ROADMAP C); against "
+        f"the port's CPU float64 populations z {np.round(z_cpu, 3).tolist()} (limit "
+        f"{MCSE_LIMIT}); on {smi}")
+    assert np.all(np.abs(z_cpu) <= MCSE_LIMIT), f"banana SMC card against CPU: z {z_cpu}"
+    out["SMC"] = z_oracle
+    return out
+
+
 def main(workdir):
     phase_times = {}
 
@@ -1476,7 +2020,8 @@ def main(workdir):
     kernels = timed("kernels", phase_kernels, models, gen)
 
     counters = {"poppk_propagate": poppk_kernels.propagate_intervals_one_compartment,
-                "transit_dp5": transit_kernels.transit_solve}
+                "transit_dp5": transit_kernels.transit_solve,
+                "poppk_propagate_adjoint": poppk_kernels.propagate_intervals_adjoint}
     paths = {}
 
     def main_path(name, kernels, fn, *args):
@@ -1515,20 +2060,53 @@ def main(workdir):
                                                   smi)}
     evals.update({k: v["evals_per_second"] for k, v in analytic.items()})
     evals.update(main_path("poppk_models", (), phase_poppk_models, workdir, smi))
+    # the gradient and population samplers: NUTS, HMC and VI differentiate
+    # through B1 and B1T, SMC scores its particles through B1
+    both = ("poppk_propagate", "poppk_propagate_adjoint")
+    samplers = {
+        "nuts_one": main_path("nuts_one", both, phase_nuts_one, models, smi),
+        "hmc_one": main_path("hmc_one", both, phase_hmc_one, models, smi),
+        "smc_one": main_path("smc_one", ("poppk_propagate",), phase_smc_one, models, smi),
+        "vi_one": main_path("vi_one", both, phase_vi_one, models, smi),
+    }
+    torch.cuda.empty_cache()
+    main_path("banana_gradient", (), phase_banana_gradient, smi)
     launches = {k: sum(p[k] for p in paths.values()) for k in counters}
     log(f"main-path launches: {launches}; per slice {json.dumps(paths)}")
 
     timed("em_card_vs_cpu", phase_em, adapted, smi)
     for pk_type in ("one", "one_transit"):
         timed(f"card_vs_cpu_{pk_type}", phase_oracle, pk_type, workdir)
+    b1t = timed("gradient_card_vs_cpu", phase_gradient_card_vs_cpu, models, smi)
+    kernels["poppk_propagate_adjoint"] = b1t["pt"]
     log("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phase_times.items()}))
     log("slice evals/s: " + json.dumps(evals) + f" on {smi}")
+    log("samplers: " + json.dumps({
+        "nuts_one": dict(ess_per_sec=samplers["nuts_one"]["ess"]["ess_per_sec"],
+                         ess_per_sec_moving_chains=samplers["nuts_one"]["ess"][
+                             "moving_ess_per_sec"],
+                         stuck_chains=samplers["nuts_one"]["ess"]["stuck_chains"],
+                         gradient_evaluations_per_sec=samplers["nuts_one"]["grad_per_s"]),
+        # HMC's ESS is not usable (phase_hmc_one): both figures, labelled
+        "hmc_one": dict(ess_usable=False,
+                        ess_per_sec_all_chains=samplers["hmc_one"]["ess"]["ess_per_sec"],
+                        ess_per_sec_moving_chains=samplers["hmc_one"]["ess"][
+                            "moving_ess_per_sec"],
+                        stuck_chains=samplers["hmc_one"]["ess"]["stuck_chains"],
+                        leapfrog_steps_per_sec=samplers["hmc_one"]["steps_per_s"]),
+        "smc_one": dict(evals_per_second=samplers["smc_one"]["evals_per_second"]),
+        "b1t_ms": {k: v["ms"] for k, v in b1t.items()},
+    }) + f" on {smi}")
 
     meta = {
         "poppk_propagate": ("bcm3_tpu_torch/csrc/poppk_propagate.cu",
                             "bcm3_tpu/ops/poppk_pallas.py:82"),
         "transit_dp5": ("bcm3_tpu_torch/csrc/transit_dp5.cu",
                         "bcm3_tpu/ops/transit_pallas.py:213"),
+        "poppk_propagate_adjoint": (
+            "bcm3_tpu_torch/csrc/poppk_propagate.cu",
+            "the reverse mode of bcm3_tpu/ops/poppk_pallas.py:82, which the JAX package "
+            "differentiates through lax.scan in bcm3_tpu/likelihoods/poppk.py:617"),
     }
     log(json.dumps({"kernels": [
         {
@@ -1542,10 +2120,10 @@ def main(workdir):
             "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],
             "bound_by": kernels[name]["bound_by"],
-            # no single PyTorch call computes either function
+            # no single PyTorch call computes any of the three functions
             "library_ms": None,
         }
-        for name in ("poppk_propagate", "transit_dp5")
+        for name in ("poppk_propagate", "transit_dp5", "poppk_propagate_adjoint")
     ]}))
     print(json.dumps({
         "ok": True,

@@ -244,3 +244,52 @@ def test_run_needs_h5py(runs, monkeypatch):
     with pytest.raises(ImportError):
         cli.main(argv("no_h5py", *PORT))
     assert not os.path.exists(os.path.join(d, "no_h5py"))
+
+
+# the samplers beyond the reference, each at a few iterations on the banana
+# fixture, and the rows each emits (the gradient samplers pool their chains)
+_SAMPLER_CONFIGS = {
+    "hmc": ("[hmcsampler]\nnum_chains=2\nnum_warmup=0\nnum_leapfrog_steps=1\n", 4 * 2),
+    "nuts": ("[nutssampler]\nnum_chains=2\nnum_warmup=0\nmax_tree_depth=3\n", 4 * 2),
+    "smc": ("[smcsampler]\nnum_particles=64\nmutation_steps=1\n", 64),
+    "vi": ("[visampler]\nnum_iterations=5\nnum_mc_samples=4\n", 4),
+}
+
+
+@pytest.mark.parametrize("stype", sorted(_SAMPLER_CONFIGS))
+def test_other_samplers_write_the_jax_layout(tmp_path, stype):
+    """`run` with sampler.type hmc, nuts, smc or vi writes output.nc with
+    the JAX CLI's layout for the same config.txt, every row finite and
+    scored by the JAX package's prior and likelihood to 1e-10; --predict
+    over the port's rows equals the stored log-likelihoods."""
+    section, rows = _SAMPLER_CONFIGS[stype]
+    d = str(tmp_path)
+    fixture = os.path.join(os.path.dirname(__file__), "fixtures", "examples", "banana")
+    cfg = os.path.join(d, "config.txt")
+    with open(cfg, "w") as f:
+        f.write(f"[sampler]\ntype={stype}\nnum_samples=4\nrngseed=3\n\n{section}")
+
+    def argv(folder, *extra):
+        return ["-c", cfg, "--prior", os.path.join(fixture, "prior.xml"),
+                "--likelihood", os.path.join(fixture, "likelihood.xml"),
+                "--output.folder", os.path.join(d, folder), *extra]
+
+    assert jax_cli.main(argv("jax_out")) == 0
+    assert cli.main(argv("port_out", *PORT)) == 0
+    jpath, ppath = (os.path.join(d, f"{n}_out", "output.nc") for n in ("jax", "port"))
+    assert _layout(ppath) == _layout(jpath)
+    res = load_results(ppath)
+    assert res["samples"].shape == (rows, 1, 2)
+    assert np.isfinite(res["samples"]).all() and np.isfinite(res["log_likelihood"]).all()
+    vs = JVariableSet.from_xml(os.path.join(fixture, "prior.xml"))
+    jprior = JPrior.from_xml(os.path.join(fixture, "prior.xml"), vs)
+    jlik = jax_create_likelihood(os.path.join(fixture, "likelihood.xml"), vs)
+    x = res["samples"][:, 0, :]
+    np.testing.assert_allclose(res["log_prior"][:, 0], np.asarray(jprior.log_pdf(x)), rtol=1e-10)
+    np.testing.assert_allclose(res["log_likelihood"][:, 0],
+                               np.asarray(jax.vmap(jlik.log_prob)(x)), rtol=1e-10)
+    assert cli.main(argv("port_out", "--predict", *PORT)) == 0
+    with h5py.File(os.path.join(d, "port_out", "prediction.nc"), "r") as f:
+        pred = f["predictions/log_likelihood"][:]
+    half = np.arange(rows // 2, rows)
+    np.testing.assert_allclose(pred[half, 0], res["log_likelihood"][half, 0], rtol=1e-10)

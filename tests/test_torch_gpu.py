@@ -19,6 +19,10 @@ two_transit evaluate on the card as on the CPU.
 
 Each kernel is held to its plain PyTorch version on the same inputs:
 - B1: rtol 1e-5 in float32, 1e-12 in float64;
+- B1T, B1's reverse mode: rtol 1e-5 in float32, 1e-12 in float64, with a
+  degenerate lane; both wrappers refuse inputs that require grad outside
+  the autograd Function, and the posterior's gradient on the card (through
+  B1 and B1T) equals the CPU's; a short NUTS run launches both;
 - B2 (float32): the kernel is built without FMA contraction and with the
   accurate exp/log/pow, and rounds like its plain version, so the two
   take the same step sequence: `ok` and the trip counts are equal on
@@ -30,6 +34,9 @@ import pytest
 import torch
 
 from bcm3_tpu_torch.ops.poppk_kernels import (
+    PropagateOneCompartment,
+    propagate_intervals_adjoint,
+    propagate_intervals_adjoint_plain,
     propagate_intervals_one_compartment,
     propagate_intervals_plain,
 )
@@ -128,6 +135,85 @@ def test_b1_kernel_matches_plain(cuda, dtype):
     rtol = 1e-5 if dtype == torch.float32 else 1e-12
     torch.testing.assert_close(g, g_ref, rtol=rtol, atol=rtol * 1e-3)
     torch.testing.assert_close(c, c_ref, rtol=rtol, atol=rtol * 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_b1t_kernel_matches_plain(cuda, dtype):
+    args = _b1_inputs(B=1001, P=10, K=14, dtype=dtype, device=cuda)
+    gut, cen = propagate_intervals_plain(*args)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    grads = [torch.randn(gut.shape, generator=gen, dtype=dtype, device=cuda) for _ in range(2)]
+    ins = (*args[:3], args[4], gut, cen, *grads)
+    before = propagate_intervals_adjoint.launches
+    got = propagate_intervals_adjoint(*ins)
+    torch.cuda.synchronize()
+    assert propagate_intervals_adjoint.launches == before + 1
+    ref = propagate_intervals_adjoint_plain(*ins)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    for g, r in zip(got, ref):
+        assert g.shape == (1001, 10) and g.dtype == dtype and g.is_cuda
+        torch.testing.assert_close(g, r, rtol=rtol, atol=rtol * r.abs().max().item())
+
+
+def test_kernels_refuse_inputs_that_require_grad(cuda):
+    """The kernels write their outputs through raw pointers: on an input
+    that requires grad they raise instead of returning outputs autograd
+    would take for constants. Through the autograd Function B1 is
+    differentiable, and its gradient is B1T's."""
+    args = _b1_inputs(B=8, P=3, K=5, dtype=torch.float64, device=cuda)
+    ka = args[0].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        propagate_intervals_one_compartment(ka, *args[1:])
+    params, grid, amt = _b2_inputs(64, cuda)
+    params["ka"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        transit_solve(params, grid, amt, **_B2_KW)
+    gut, cen = PropagateOneCompartment.apply(ka, *args[1:])
+    (d_ka,) = torch.autograd.grad((gut.sum() + cen.sum()), [ka])
+    ka_cpu = args[0].cpu().requires_grad_(True)
+    g_cpu, c_cpu = propagate_intervals_plain(ka_cpu, *(a.cpu() for a in args[1:]))
+    (ref,) = torch.autograd.grad(g_cpu.sum() + c_cpu.sum(), [ka_cpu])
+    torch.testing.assert_close(d_ka.cpu(), ref, rtol=1e-12, atol=1e-12)
+
+
+def test_gradient_samplers_on_the_card(cuda, tmp_path):
+    """PopPK `one` on the card: the posterior's value and gradient in z
+    (float64, through B1 and B1T) equal the CPU's (plain versions), and a
+    short NUTS run launches B1 and B1T and emits finite rows."""
+    from bcm3_tpu_torch import Prior, VariableSet
+    from bcm3_tpu_torch.likelihoods import Likelihood
+    from bcm3_tpu_torch.likelihoods.poppk import PopPKLikelihood
+    from bcm3_tpu_torch.likelihoods.poppk_synth import synthesize_trial, write_poppk_prior_xml
+    from bcm3_tpu_torch.sampler import NUTSConfig, SamplerNUTS
+    from bcm3_tpu_torch.sampler.hmc import LogPosterior
+
+    P = 6
+    path = str(tmp_path / "prior.xml")
+    write_poppk_prior_xml(path, P, "one")
+    vs = VariableSet.from_xml(path)
+    prior = Prior.from_xml(path, vs)
+    trial, _ = synthesize_trial(num_patients=P, num_timepoints=12, seed=3)
+    pk = PopPKLikelihood(vs, trial, "one", "lapatinib")
+    lik = Likelihood("pop_pk_trajectory", pk.log_prob_batched, model=pk)
+    target = LogPosterior(prior, lik)
+    z = target.reparam.from_x(prior.sample(torch.Generator().manual_seed(1), (64,)))
+    v_cpu, g_cpu = target.value_and_grad(z)
+    before = propagate_intervals_adjoint.launches
+    v, g = target.value_and_grad(z.to(cuda))
+    assert propagate_intervals_adjoint.launches == before + 1
+    fin = torch.isfinite(v_cpu)
+    assert fin.sum().item() >= 16
+    torch.testing.assert_close(v.cpu(), v_cpu, rtol=1e-10, atol=0)
+    torch.testing.assert_close(g.cpu()[fin], g_cpu[fin], rtol=1e-8, atol=1e-8)
+
+    b1, b1t = propagate_intervals_one_compartment.launches, propagate_intervals_adjoint.launches
+    cfg = NUTSConfig(num_samples=3, num_warmup=4, num_chains=32, max_tree_depth=4, seed=2,
+                     device="cuda", dtype=torch.float32)
+    res = SamplerNUTS(prior, lik, cfg).run()
+    assert propagate_intervals_one_compartment.launches > b1
+    assert propagate_intervals_adjoint.launches > b1t
+    assert res["samples"].shape == (3 * 32, 1, vs.num_variables)
+    assert np.isfinite(res["samples"]).all()
 
 
 def test_b2_kernel_matches_plain(cuda):

@@ -6,10 +6,11 @@ package (reference: src/sampler/SamplerIS.cpp, SamplerFactory.cpp).
   one that returns fixed batches (no file of the JAX package changes).
 - A short run on PopPK `one` (float64, CPU): weights == exp(llh), and the
   kept rows' log-prior and log-likelihood are the JAX package's to 1e-10.
-- The factory builds ptmh and is, and refuses the four unported types
-  naming ROADMAP A9.
+- The factory builds every sampler type on the option map's device, each
+  with the count of rows it emits.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -22,13 +23,23 @@ from bcm3_tpu.model.prior import Prior as JPrior
 from bcm3_tpu.model.variables import VariableSet as JVariableSet
 from bcm3_tpu.sampler import ISConfig as JISConfig
 from bcm3_tpu.sampler import SamplerIS as JSamplerIS
+from bcm3_tpu.sampler import create_sampler as jax_create_sampler
 from bcm3_tpu_torch import Prior, VariableSet, create_likelihood
 from bcm3_tpu_torch.likelihoods.poppk_synth import (
     synthesize_trial,
     write_poppk_likelihood_xml,
     write_poppk_prior_xml,
 )
-from bcm3_tpu_torch.sampler import ISConfig, SamplerIS, SamplerPT, create_sampler
+from bcm3_tpu_torch.sampler import (
+    ISConfig,
+    SamplerHMC,
+    SamplerIS,
+    SamplerNUTS,
+    SamplerPT,
+    SamplerSMC,
+    SamplerVI,
+    create_sampler,
+)
 from bcm3_tpu_torch.sampler.importance import LOG_WEIGHT_CUTOFF
 
 
@@ -104,21 +115,53 @@ def test_short_run_weights_and_densities(models):
     np.testing.assert_allclose(ll[:, 0], jll, rtol=1e-10)
 
 
-_TYPES = [("ptmh", SamplerPT), ("is", SamplerIS)] + [
-    (t, NotImplementedError) for t in ("hmc", "nuts", "smc", "vi")
+# (type, class, emitted rows for 10 samples: the gradient samplers pool
+# their 8 default chains, SMC emits its 2048 default particles)
+_TYPES = [
+    ("ptmh", SamplerPT, 10), ("is", SamplerIS, 10), ("hmc", SamplerHMC, 80),
+    ("nuts", SamplerNUTS, 80), ("smc", SamplerSMC, 2048), ("vi", SamplerVI, 10),
 ]
 
 
-@pytest.mark.parametrize("stype,expected", _TYPES, ids=[t for t, _ in _TYPES])
-def test_factory_dispatch(models, stype, expected):
+@pytest.mark.parametrize("stype,expected,rows", _TYPES, ids=[t[0] for t in _TYPES])
+def test_factory_dispatch(models, stype, expected, rows):
     prior, lik = models["port"]
     opts = {"sampler.type": stype, "sampler.num_samples": "10", "device": "cpu"}
-    if expected is NotImplementedError:
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            create_sampler(prior, lik, opts)
-    else:
-        s = create_sampler(prior, lik, opts)
-        assert isinstance(s, expected) and s.device == torch.device("cpu")
-        assert s.expected_emitted_samples == 10
+    s = create_sampler(prior, lik, opts)
+    assert isinstance(s, expected) and s.device == torch.device("cpu")
+    assert s.expected_emitted_samples == rows
     with pytest.raises(ValueError, match="Unknown sampler.type"):
         create_sampler(prior, lik, dict(opts, **{"sampler.type": stype + "_x"}))
+
+
+_OPTIONS = {
+    "hmc": {"hmcsampler.num_chains": "3", "hmcsampler.num_warmup": "7",
+            "hmcsampler.num_leapfrog_steps": "5", "hmcsampler.target_accept": "0.7"},
+    "nuts": {"nutssampler.num_chains": "3", "nutssampler.num_warmup": "7",
+             "nutssampler.max_tree_depth": "4", "nutssampler.target_accept": "0.85"},
+    "smc": {"smcsampler.num_particles": "64", "smcsampler.mutation_steps": "2",
+            "smcsampler.ess_target": "0.6"},
+    "vi": {"visampler.num_iterations": "9", "visampler.num_mc_samples": "4",
+           "visampler.learning_rate": "0.01"},
+}
+
+
+@pytest.mark.parametrize("stype", sorted(_OPTIONS))
+def test_factory_options_match_jax(stype):
+    """The factory reads the JAX factory's option names into the same
+    config values, defaults included, and the port's device and dtype."""
+    d = os.path.join(os.path.dirname(__file__), "fixtures", "examples", "banana")
+    jvs = JVariableSet.from_xml(os.path.join(d, "prior.xml"))
+    jprior = JPrior.from_xml(os.path.join(d, "prior.xml"), jvs)
+    jlik = jax_create_likelihood(os.path.join(d, "likelihood.xml"), jvs)
+    vs = VariableSet.from_xml(os.path.join(d, "prior.xml"))
+    prior = Prior.from_xml(os.path.join(d, "prior.xml"), vs)
+    lik = create_likelihood(os.path.join(d, "likelihood.xml"), vs)
+    for opts in ({"sampler.type": stype},
+                 {"sampler.type": stype, "sampler.num_samples": "11", "sampler.rngseed": "4",
+                  "sampler.use_every_nth": "2", **_OPTIONS[stype]}):
+        ref = jax_create_sampler(jprior, jlik, opts).config
+        got = create_sampler(prior, lik, dict(opts, device="cpu", dtype="float64")).config
+        for field in dataclasses.fields(ref):
+            assert getattr(got, field.name) == getattr(ref, field.name), field.name
+        assert got.device == "cpu" and got.dtype == torch.float64
