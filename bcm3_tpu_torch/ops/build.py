@@ -48,10 +48,11 @@ _SIGNATURES = {
     # lanes, patients, intervals, stream
     "bcm3_poppk_propagate_f32": [_P] * 8 + [_I64, _I32, _I32, _P],
     "bcm3_poppk_propagate_f64": [_P] * 8 + [_I64, _I32, _I32, _P],
-    # ka, ke, kel, interval, gut, cen, grad_gut, grad_cen, d_ka, d_ke,
-    # d_kel, lanes, patients, intervals, stream
-    "bcm3_poppk_propagate_adjoint_f32": [_P] * 11 + [_I64, _I32, _I32, _P],
-    "bcm3_poppk_propagate_adjoint_f64": [_P] * 11 + [_I64, _I32, _I32, _P],
+    # ka, ke, kel, initial_dose, interval, dose, grad_gut, grad_cen,
+    # d_rates (3 x lanes: d/dka, d/dke, d/dkel), lanes, patients,
+    # intervals, stream
+    "bcm3_poppk_propagate_adjoint_f32": [_P] * 9 + [_I64, _I32, _I32, _P],
+    "bcm3_poppk_propagate_adjoint_f64": [_P] * 9 + [_I64, _I32, _I32, _P],
     # ka, ke, kel, k_transit, n_transit, dose0, grid, amt, central, ok,
     # next_lane, lane_trips, warp_slots, lanes, patients, stops, trips,
     # rtol, atol, min_dt, first_dt, stream

@@ -108,9 +108,11 @@ Phases, each printing its lines before the last:
    reflection on the prior's bounds moves it off, ROADMAP C);
 21. `gradient_card_vs_cpu`: the card's float32 log-posterior and gradient
    in z against the CPU's float64 on 256 prior draws of `one`; B1T
-   against its plain version at the NUTS path's width (32,768 lanes) and
-   the PT path's (1,048,576), bit for bit or not, with CUDA-event times,
-   bound and roofline share.
+   against its plain version, bit for bit (asserted), at the widths its
+   paths launch it: NUTS and HMC's (32,768 lanes, float32), the PT
+   headline's (1,048,576, float32) and VI's (512, float64), each with its
+   device time a launch (a CUDA graph of 50 launches), the wrapper's host
+   time a call, bound and roofline share.
 
 The kernels' launch counters are set to 0 just before each slice of the
 main path (phases 4-7, 9, 10 and 13-20) and read just after it, so the
@@ -118,7 +120,11 @@ counts show that each slice itself went through the kernels (`cli_one`
 through B1 and B2; phases 13-15 and 20 run paths that no kernel serves;
 phases 16, 17 and 19 through B1 and B1T, phase 18 through B1).
 Any failed check raises, and the script exits non-zero without printing a
-result. The last line is
+result.
+
+`python3 chip_smoke.py --b1t-timing [TREE]` times B1T alone at those
+widths, from this checkout's package or from TREE's (an earlier commit
+unpacked with `git archive`), and prints one JSON line. The last line is
 {"ok": true, "device": {...}}; the line before it lists the three kernels.
 JAX is neither needed nor imported.
 """
@@ -342,7 +348,7 @@ def phase_build():
     seconds = time.perf_counter() - t0
     log(f"build: {path.name} in {seconds:.2f} s (nvcc {build.last_build_seconds})")
     for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
 
@@ -1781,25 +1787,22 @@ def phase_vi_one(models, smi):
     return dict(res=res)
 
 
-def b1t_inputs(models, rows, gen):
-    """B1T's inputs as the NUTS path gives them: the posterior's gradient of
-    `rows` prior draws on the card, with the gradients flowing into B1's
-    outputs captured on their way to B1T."""
-    import torch
-
+def b1t_inputs(models, rows, gen, dtype):
+    """B1T's inputs as the gradient path gives them: the posterior's
+    gradient of `rows` prior draws on the card, with B1's inputs and the
+    gradients flowing into B1's outputs captured on their way to B1T."""
     from bcm3_tpu_torch.likelihoods import poppk
     from bcm3_tpu_torch.ops.poppk_kernels import PropagateOneCompartment
     from bcm3_tpu_torch.sampler.hmc import LogPosterior
 
     prior, lik = models["one"]
     target = LogPosterior(prior, lik)
-    z = target.reparam.from_x(prior.sample(gen, (rows,), torch.float32))
+    z = target.reparam.from_x(prior.sample(gen, (rows,), dtype))
     seen = {}
 
-    def capture(ka, ke, kel, *data):
-        gut, cen = PropagateOneCompartment.apply(ka, ke, kel, *data)
-        seen.update(args=(ka.detach(), ke.detach(), kel.detach(), data[1]),
-                    out=(gut.detach(), cen.detach()))
+    def capture(*inputs):
+        gut, cen = PropagateOneCompartment.apply(*inputs)
+        seen["args"] = tuple(x.detach() for x in inputs)
         gut.register_hook(lambda t: seen.__setitem__("grad_gut", t))
         cen.register_hook(lambda t: seen.__setitem__("grad_cen", t))
         return gut, cen
@@ -1810,14 +1813,90 @@ def b1t_inputs(models, rows, gen):
         target.value_and_grad(z)
     finally:
         poppk.PropagateOneCompartment = function
-    return (*seen["args"], *seen["out"], seen["grad_gut"].contiguous(),
-            seen["grad_cen"].contiguous())
+    return (*seen["args"], seen["grad_gut"].contiguous(), seen["grad_cen"].contiguous())
 
 
-def b1t_against_plain(args, smi):
+def graph_ms(fn, reps=50, replays=20):
+    """Device milliseconds per call of fn: `reps` calls captured in one
+    CUDA graph, replayed `replays` times between CUDA events, so that no
+    host work stands between two launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * replays)
+
+
+def host_us(fn, reps=200):
+    """Host microseconds per call of fn: the calls enqueued back to back,
+    timed on the host clock before the card is waited for."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return seconds / reps * 1e6
+
+
+def b1t_call(args):
+    """A call of this tree's B1T on B1T's inputs. A tree from before B1T
+    recomputed the forward (its wrapper reads B1's outputs `gut`, `cen`)
+    gets them from B1 first, outside the call, so that
+    `--b1t-timing TREE` can time an earlier commit's kernel."""
+    import inspect
+
+    from bcm3_tpu_torch.ops import poppk_kernels as pk
+
+    if "gut" not in inspect.signature(pk.propagate_intervals_adjoint).parameters:
+        return lambda: pk.propagate_intervals_adjoint(*args)
+    gut, cen = pk.propagate_intervals_one_compartment(*args[:6])
+    old = (*args[:3], args[4], gut, cen, *args[6:])
+    return lambda: pk.propagate_intervals_adjoint(*old)
+
+
+def b1t_times(args):
+    """B1T's times on `args`: device ms a launch (`graph_ms`), ms a call
+    of back-to-back wrapper calls by CUDA events (the larger of the device
+    time and the wrapper's host time), and the wrapper's host µs a call."""
+    call = b1t_call(args)
+    return dict(ms=graph_ms(call), stream_ms=cuda_ms(call, 50), host_us=host_us(call))
+
+
+def b1t_bound(args):
+    """B1T's bound: the bytes its function must move (B1's inputs and the
+    two incoming gradients read once, 3 B P gradients written) at the
+    memory rate, or its operations (per lane ~30 of set-up and chain rule
+    and 22 an interval, csrc/poppk_propagate.cu) at the float32 peak."""
+    B, P = args[0].shape
+    K = args[5].shape[1]
+    nbytes = sum(x.numel() * x.element_size() for x in args) + 3 * B * P * args[0].element_size()
+    return (*bound_ms(B * P * (30 + 22 * K), nbytes), nbytes)
+
+
+def b1t_against_plain(name, args, smi):
     """B1T against its plain version on the card: bit for bit on the lanes
-    where both are finite (the kernel is built without FMA contraction and
-    sums in the plain version's order), CUDA-event times of both, the
+    where both are finite, with the same finite set (the kernel is built
+    without FMA contraction and takes the plain version's operations in
+    its order); its device time, the wrapper's, the plain version's, the
     bound and the roofline share."""
     import torch
 
@@ -1830,40 +1909,41 @@ def b1t_against_plain(args, smi):
     ref = b1t_plain(*args)
     torch.cuda.synchronize()
     B, P = args[0].shape
-    K = args[4].shape[0]
+    K = args[5].shape[1]
     fin = torch.ones_like(ref[0], dtype=torch.bool)
     for r in ref:
         fin &= torch.isfinite(r)
-    for g in got:
-        fin &= torch.isfinite(g)
     assert fin.double().mean().item() > 0.9, "B1T: too few finite lanes"
-    identical = all(torch.equal(g[fin], r[fin]) for g, r in zip(got, ref))
     same_set = all(torch.equal(torch.isfinite(g), torch.isfinite(r)) for g, r in zip(got, ref))
+    identical = all(torch.equal(g[fin], r[fin]) for g, r in zip(got, ref))
     err = max((g - r).abs()[fin].max().item() for g, r in zip(got, ref))
     rel = max(((g - r).abs()[fin] / (r.abs()[fin] + 1e-30)).max().item()
               for g, r in zip(got, ref))
-    assert same_set, "B1T: finite sets differ from the plain version's"
-    assert identical, f"B1T differs from its plain version: max abs err {err}, rel {rel}"
-    ms = cuda_ms(lambda: b1t(*args), 50)
+    assert same_set, f"B1T {name}: finite sets differ from the plain version's"
+    assert identical, f"B1T {name} differs from its plain version: max abs err {err}, rel {rel}"
+    times = b1t_times(args)
     plain_ms = cuda_ms(lambda: b1t_plain(*args), 10)
-    # the bound: B1's reverse mode reads the two incoming gradients (K x B x
-    # P each) and B1's inputs (the three rates, the initial doses, the
-    # intervals, the P x K doses) once and writes the three gradients; per
-    # lane ~30 float operations of set-up and chain rule and 12 per
-    # interval (csrc/poppk_propagate.cu, B1T)
-    nbytes = (2 * K * B * P + 3 * B * P + P * (K + 2)) * 4 + 3 * B * P * 4
-    bound, by = bound_ms(B * P * (30 + 12 * (K - 1)), nbytes)
-    # what the kernel moves: it reads the saved outputs of intervals 0 to
-    # K-2 besides the gradients in place of recomputing the forward
-    kernel_bytes = ((4 * K - 2) * B * P + 3 * B * P + P) * 4 + 3 * B * P * 4
-    log(f"B1T poppk_propagate_adjoint B={B} P={P} K={K} ({B * P} lanes): bit for bit "
-        f"{identical} (asserted; max abs err {err:.3e}, max rel err {rel:.3e}); kernel "
-        f"{ms:.4f} ms a call (CUDA events), plain {plain_ms:.4f} ms; bound {bound:.4f} ms by "
-        f"{by} ({nbytes} bytes), roofline share {bound / ms:.3f}; the kernel's own traffic "
-        f"{kernel_bytes} bytes, {kernel_bytes / PEAK_BYTES * 1e3:.4f} ms at the memory rate, "
-        f"share {kernel_bytes / PEAK_BYTES * 1e3 / ms:.3f}; on {smi}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+    bound, by, nbytes = b1t_bound(args)
+    log(f"B1T poppk_propagate_adjoint, {name} width, B={B} P={P} K={K} ({B * P} lanes, "
+        f"{args[0].dtype}): bit for bit {identical} (asserted, same finite set; max abs err "
+        f"{err:.3e}, max rel err {rel:.3e}); kernel {times['ms']:.5f} ms a launch (device "
+        f"time: 50 launches in a CUDA graph), {times['stream_ms']:.5f} ms a call back to back "
+        f"(CUDA events), wrapper {times['host_us']:.2f} us a call on the host; plain "
+        f"{plain_ms:.4f} ms; bound {bound:.5f} ms by {by} ({nbytes} bytes), roofline share "
+        f"{bound / times['ms']:.3f}; on {smi}")
+    return dict(times, max_abs_err=err, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 bit_for_bit=identical)
+
+
+# B1T at the widths its paths launch it: NUTS and HMC (2,048 chains x 16
+# patients, float32), the PT headline (8 x 8,192 chains, float32: the
+# kernels line's), VI (32 Monte Carlo samples, float64)
+def b1t_widths():
+    import torch
+
+    return (("nuts", NUTS_ONE["num_chains"], torch.float32),
+            ("pt", NUM_CHAINS * ENSEMBLES["one"], torch.float32),
+            ("vi", VI_ONE["num_mc_samples"], torch.float64))
 
 
 def phase_gradient_card_vs_cpu(models, smi):
@@ -1904,10 +1984,35 @@ def phase_gradient_card_vs_cpu(models, smi):
     assert both.sum() >= len(x) // 4 and flips == 0
     assert rel_v.max() <= GRAD_RTOL and ok_g >= GRAD_SHARE
     gen = torch.Generator(device=CARD).manual_seed(6)
-    out = {}
-    for name, rows in (("nuts", NUTS_ONE["num_chains"]), ("pt", NUM_CHAINS * ENSEMBLES["one"])):
-        out[name] = b1t_against_plain(b1t_inputs(models, rows, gen), smi)
-    return out
+    return {name: b1t_against_plain(name, b1t_inputs(models, rows, gen, dtype), smi)
+            for name, rows, dtype in b1t_widths()}
+
+
+def b1t_timing(tree):
+    """`python3 chip_smoke.py --b1t-timing [TREE]`: B1T's times alone, at
+    each width of `b1t_widths`, on the inputs the gradient path gives it,
+    from this checkout's package or from TREE's (another commit unpacked
+    with `git archive`); one JSON line. Run it in turns over two trees in
+    one call to compare their kernels on one card."""
+    if tree:
+        sys.path.insert(0, os.path.abspath(tree))
+    smi = phase_environment()
+    import torch
+
+    phase_build()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        models = {"one": build_model("one", tmp)}
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        out = {}
+        for name, rows, dtype in b1t_widths():
+            args = b1t_inputs(models, rows, gen, dtype)
+            bound, by, _ = b1t_bound(args)
+            out[name] = dict(b1t_times(args), bound_ms=bound, bound_by=by,
+                             lanes=args[0].numel())
+    from bcm3_tpu_torch.ops import poppk_kernels
+
+    log(json.dumps({"b1t_timing": out, "tree": tree or ".",
+                    "package": os.path.dirname(poppk_kernels.__file__), "device": smi}))
 
 
 def smc_replicates(prior, lik, device, dtype, seeds):
@@ -2095,7 +2200,8 @@ def main(workdir):
                         stuck_chains=samplers["hmc_one"]["ess"]["stuck_chains"],
                         leapfrog_steps_per_sec=samplers["hmc_one"]["steps_per_s"]),
         "smc_one": dict(evals_per_second=samplers["smc_one"]["evals_per_second"]),
-        "b1t_ms": {k: v["ms"] for k, v in b1t.items()},
+        "b1t_device_ms": {k: v["ms"] for k, v in b1t.items()},
+        "b1t_wrapper_host_us": {k: v["host_us"] for k, v in b1t.items()},
     }) + f" on {smi}")
 
     meta = {
@@ -2136,6 +2242,8 @@ def main(workdir):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--b1t-timing"]:
+        sys.exit(b1t_timing(sys.argv[2] if len(sys.argv) > 2 else None))
     # the prior XML files of the run live in a directory removed at exit
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sys.exit(main(tmp))

@@ -4,8 +4,10 @@
   version against torch.autograd.grad through B1's plain recurrence and
   against jax.grad through the JAX package's scan oracle
   (bcm3_tpu/ops/poppk_pallas.py:134), float64, rtol 1e-10, with a
-  degenerate lane (ka + ke == kel); and torch.autograd.gradcheck of the
-  autograd Function.
+  degenerate lane (ka + ke == kel), at K = 9 and over K in {1, 2, 5, 14}; in
+  float32 against jax.grad in float32 (limit below); the autograd
+  Function saves only its inputs (B1T recomputes the forward); and
+  torch.autograd.gradcheck of the autograd Function.
 - The posterior in z (hmc.LogPosterior): value and gradient against
   jax.grad of the JAX package's `logpost_z` (bcm3_tpu/sampler/nuts.py:122-130)
   on PopPK `one`, `two`, `one_biphasic_uptake` (through tests/jax_shims.py)
@@ -103,13 +105,64 @@ def test_b1t_plain_matches_jax_grad():
         return jnp.sum(gut * weights[0]) + jnp.sum(cen * weights[1])
 
     ref = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(r) for r in rates))
-    # B1T itself, given the forward's outputs and the loss's weights
-    x = [_t(r) for r in rates]
-    gut, cen = propagate_intervals_plain(*x, *map(_t, data))
-    got = propagate_intervals_adjoint(*x, _t(data[1]), gut, cen, _t(weights[0]), _t(weights[1]))
+    # B1T itself, given B1's inputs and the loss's weights
+    got = propagate_intervals_adjoint(*map(_t, rates), *map(_t, data), *map(_t, weights))
     for r, g in zip(ref, got):
         r = np.asarray(r)
         np.testing.assert_allclose(g.numpy(), r, rtol=1e-10, atol=1e-12 * np.abs(r).max())
+
+
+# float32: both sides round every operation to float32 (unit roundoff u
+# = 6e-8). Relative to each gradient's largest lane (the loss's random
+# weights of both signs let a lane's sum cancel), the error is bounded by
+# eg = exp(-(ka + ke) dt) with |(ka + ke) dt| up to ~50 here, whose
+# argument rounded by u is a relative error of ~50 u = 3e-6 in eg, plus
+# the rounding of the tangents' sums of up to K(K+1)/2 ~ 100 products,
+# ~100 u = 6e-6: about 1e-5 in all. The limit: 2e-5 of the largest lane
+# (measured: at most 1.8e-6).
+_F32_LIMIT = 2e-5
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("K", [1, 2, 5, 14])
+def test_b1t_plain_matches_jax_grad_over_K(K, dtype):
+    rates, data, weights = _b1_problem(B=6, P=3, K=K, seed=10 + K)
+    rates, data, weights = ([np.asarray(a, dtype) for a in x] for x in (rates, data, weights))
+    # degenerate lanes, ka + ke == kel in the working type
+    for b, p in ((0, 1), (3, 2)):
+        rates[2][b, p] = rates[0][b, p] + rates[1][b, p]
+
+    def loss(ka, ke, kel):
+        gut, cen = jax_b1_reference(ka, ke, kel, *(jnp.asarray(d) for d in data))
+        return jnp.sum(gut * weights[0]) + jnp.sum(cen * weights[1])
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(r) for r in rates))
+    assert all(r.dtype == np.dtype(dtype) for r in ref)
+    tt = getattr(torch, dtype)
+    got = propagate_intervals_adjoint(
+        *(torch.as_tensor(a, dtype=tt) for a in (*rates, *data, *weights))
+    )
+    for r, g in zip(ref, got):
+        r, g = np.asarray(r), g.numpy()
+        assert g.dtype == np.dtype(dtype)
+        if dtype == "float64":
+            np.testing.assert_allclose(g, r, rtol=1e-10, atol=1e-12 * np.abs(r).max())
+        else:
+            np.testing.assert_allclose(g, r, rtol=0, atol=_F32_LIMIT * np.abs(r).max())
+
+
+def test_b1_function_saves_only_its_inputs():
+    """B1T recomputes the forward, so autograd keeps no (K, B, P) state:
+    the Function's saved tensors are its six inputs."""
+    rates, data, _ = _b1_problem(B=4, P=3, K=7, seed=3)
+    x = [_t(r).requires_grad_(True) for r in rates]
+    data = [_t(d) for d in data]
+    gut, cen = PropagateOneCompartment.apply(*x, *data)
+    saved = gut.grad_fn.saved_tensors
+    assert len(saved) == 6
+    for s, inp in zip(saved, (*x, *data)):
+        assert s.data_ptr() == inp.data_ptr() and s.shape == inp.shape
+    assert all(s.numel() < gut.numel() for s in saved)
 
 
 def test_b1_function_gradcheck():
