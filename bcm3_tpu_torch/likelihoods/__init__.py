@@ -5,14 +5,17 @@ src/likelihoods/LikelihoodFactory.cpp:31-101), configured from the same
 ``likelihood.xml`` schema. A likelihood here is batched by nature: its
 one evaluation entry is ``log_prob_batched(xs (B, D)) -> (B,)``. Ported:
 the analytic targets (``banana``, ``circular``, ``multimodal_gaussians``,
-``truncated_t``, ``dummy``) and ``pop_pk_trajectory``; every other type
-of the JAX package raises NotImplementedError naming its ROADMAP item
-(`_UNPORTED`). `fixed_parameter_likelihood` builds the likelihood of
-`--bcmopt`.
+``truncated_t``, ``dummy``), ``pop_pk_trajectory``, the pharmacometric
+types (``pharmaco_single``, ``pharmaco_population``,
+``pharmacokinetic_trajectory``) and the generic ``ODE`` and ``dll``;
+every other type of the JAX package raises NotImplementedError naming its
+ROADMAP item (`_UNPORTED`). `fixed_parameter_likelihood` builds the
+likelihood of `--bcmopt`.
 """
 
 from __future__ import annotations
 
+import os
 import xml.etree.ElementTree as ET
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Sequence
@@ -111,6 +114,46 @@ def _pop_pk(varset: VariableSet, attrs) -> Likelihood:
     return Likelihood("pop_pk_trajectory", pk.log_prob_batched, attrs=attrs, model=pk)
 
 
+def _pharmaco_single(varset: VariableSet, attrs) -> Likelihood:
+    from bcm3_tpu_torch.likelihoods.pharmaco import create_pharmaco_single
+
+    model = create_pharmaco_single(varset, attrs)
+    return Likelihood("pharmaco_single", model.log_prob_batched, attrs=attrs, model=model)
+
+
+def _pharmaco_population(varset: VariableSet, attrs) -> Likelihood:
+    from bcm3_tpu_torch.likelihoods.pharmaco import create_pharmaco_population
+
+    model = create_pharmaco_population(varset, attrs)
+    return Likelihood("pharmaco_population", model.log_prob_batched, attrs=attrs, model=model)
+
+
+def _pk_single(varset: VariableSet, attrs) -> Likelihood:
+    from bcm3_tpu_torch.likelihoods.pk_single import create_pk_likelihood
+
+    pk = create_pk_likelihood(varset, attrs)
+    return Likelihood("pharmacokinetic_trajectory", pk.log_prob_batched, attrs=attrs, model=pk)
+
+
+def _ode_template(varset: VariableSet, attrs) -> Likelihood:
+    from bcm3_tpu_torch.likelihoods.ode_template import ODETemplateLikelihood
+
+    model = ODETemplateLikelihood(varset, derivative=attrs.get("_derivative"))
+    return Likelihood("ODE", model.log_prob_batched, attrs=attrs, model=model)
+
+
+def _dll(varset: VariableSet, attrs) -> Likelihood:
+    from bcm3_tpu_torch.likelihoods.plugin import load_plugin_log_prob
+
+    base = attrs.get("dll_filename_base") or attrs.get("plugin")
+    if not base:
+        raise ValueError("dll likelihood requires a dll_filename_base attribute")
+    xml_path = attrs.get("_xml_path")
+    base_dir = os.path.dirname(xml_path) if xml_path else "."
+    return Likelihood("dll", load_plugin_log_prob(base, list(varset.names), base_dir),
+                      attrs=attrs)
+
+
 _REGISTRY: Dict[str, Callable[..., Likelihood]] = {
     "banana": _banana,
     "circular": _circular,
@@ -118,15 +161,15 @@ _REGISTRY: Dict[str, Callable[..., Likelihood]] = {
     "truncated_t": _truncated_t,
     "dummy": _dummy,
     "pop_pk_trajectory": _pop_pk,
+    "pharmaco_single": _pharmaco_single,
+    "pharmaco_population": _pharmaco_population,
+    "pharmacokinetic_trajectory": _pk_single,
+    "ODE": _ode_template,
+    "dll": _dll,
 }
 
 # the JAX package's other types and the ROADMAP item that ports each
 _UNPORTED = {
-    "pharmaco_single": "A10",
-    "pharmaco_population": "A10",
-    "pharmacokinetic_trajectory": "A10",
-    "ODE": "A10",
-    "dll": "A10",
     "cell_cycle_marker": "A10",
     "mitosis_time_estimation": "A10",
     "incucyte_population": "A10",
@@ -155,16 +198,26 @@ def fixed_parameter_likelihood(
     return Likelihood("bcmopt", log_prob_batched)
 
 
-def create_likelihood(filename: str, varset: VariableSet) -> Likelihood:
-    """Create a likelihood from a likelihood.xml file (reference:
+def create_likelihood(filename_or_type: str, varset: VariableSet, **kwargs) -> Likelihood:
+    """Create a likelihood from a likelihood.xml file or a bare type name,
+    whose attributes are then the keyword arguments (numbers as strings,
+    as XML gives them; names starting with "_" as they are, such as the
+    ODE type's `_derivative`) (reference:
     src/likelihoods/LikelihoodFactory.cpp:31-101, src/bcminf/main.cpp:43-50)."""
-    root = ET.parse(filename).getroot()
-    if root.tag != "bcm_likelihood":
-        raise ValueError(f"likelihood file root must be bcm_likelihood, got {root.tag}")
-    ltype = root.get("type")
-    attrs: Dict[str, Any] = dict(root.attrib)
-    attrs["_xml_path"] = filename
-    attrs["_xml_root"] = root
+    if filename_or_type.endswith(".xml"):
+        root = ET.parse(filename_or_type).getroot()
+        if root.tag != "bcm_likelihood":
+            raise ValueError(f"likelihood file root must be bcm_likelihood, got {root.tag}")
+        ltype = root.get("type")
+        attrs: Dict[str, Any] = dict(root.attrib)
+        attrs["_xml_path"] = filename_or_type
+        attrs["_xml_root"] = root
+    else:
+        ltype = filename_or_type
+        attrs = {
+            k: (v if k.startswith("_") or not isinstance(v, (int, float)) else str(v))
+            for k, v in kwargs.items()
+        }
     if ltype in _UNPORTED:
         raise NotImplementedError(
             f"likelihood type '{ltype}' is not ported yet (ROADMAP {_UNPORTED[ltype]}); "

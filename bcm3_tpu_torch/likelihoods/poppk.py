@@ -200,6 +200,13 @@ def _simulate_until(trial: PopPKTrial) -> np.ndarray:
 class PopPKLikelihood:
     """Batched PopPK log-likelihood over the full patient population."""
 
+    # the prior variables that `_patient_params` reads by name, by model
+    NAMED_PARAMS = {
+        "two_biphasic": ("biphasic_uptake_time", "mean_absorption2"),
+        "one_transit": ("n_transit", "mean_transit_time"),
+        "two_transit": ("n_transit", "mean_transit_time"),
+    }
+
     def __init__(
         self,
         varset: VariableSet,
@@ -251,7 +258,9 @@ class PopPKLikelihood:
             np.isfinite(fixed_periphery_fwd)
         ) + int(np.isfinite(fixed_periphery_bwd))
         expected = self.num_pk_params - fixed_count + 2 * (P + 1) + 2
-        if varset.num_variables != expected:
+        # a subclass with another variable layout (the single-patient
+        # likelihood, likelihoods/pk_single.py) sets _skip_varset_check
+        if not getattr(self, "_skip_varset_check", False) and varset.num_variables != expected:
             raise ValueError(
                 f"Incorrect number of variables in prior: got "
                 f"{varset.num_variables}, expected {expected}"
@@ -267,12 +276,7 @@ class PopPKLikelihood:
         ):
             if name in varset.names:
                 self._named_ix[name] = varset.index_of(name)
-        needs = {
-            "two_biphasic": ("biphasic_uptake_time", "mean_absorption2"),
-            "one_transit": ("n_transit", "mean_transit_time"),
-            "two_transit": ("n_transit", "mean_transit_time"),
-        }.get(self.pk_type, ())
-        for name in needs:
+        for name in self.NAMED_PARAMS.get(self.pk_type, ()):
             if name not in self._named_ix:
                 raise ValueError(f"pk_type '{pk_type}' needs a prior variable named '{name}'")
 

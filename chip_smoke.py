@@ -16,6 +16,10 @@ Phases, each printing its lines before the last:
    card could take for the same work); for B2 also the per-lane trip
    counts of kernel and plain version (asserted equal), their
    distribution, the warp efficiency and the trips the early exit saves;
+3b. `kernels_one_patient`: B1 and B2 at one patient (P = 1), on the inputs
+   the single-patient likelihood (`pharmacokinetic_trajectory`) makes
+   from prior draws at the slices' widths, bit for bit against their
+   plain versions;
 4. the slice, `one`: SamplerPT, 8 chains x 8192 ensembles, PopPK
    one-compartment over the bench trial (16 patients x 24 timepoints);
 5. the slice, `one_transit`: 8 chains x 4096 ensembles;
@@ -112,13 +116,37 @@ Phases, each printing its lines before the last:
    paths launch it: NUTS and HMC's (32,768 lanes, float32), the PT
    headline's (1,048,576, float32) and VI's (512, float64), each with its
    device time a launch (a CUDA graph of 50 launches), the wrapper's host
-   time a call, bound and roofline share.
+   time a call, bound and roofline share;
+22. `pharmaco_population` at bench.py bench_pharmaco's width (524,288 rows
+   of its values with jitter 0.03, 16 patients x 24 observations, K = 29,
+   n = 2, float32): evals/s over 3 evaluations after a warm-up, the finite
+   count, the peak memory, the device's busy share under the profiler and
+   the time by stage (parameters, step-matrix expm, recurrence, read-out
+   and its expm, scoring); the card's float32 against the CPU's float64
+   on 256 rows, and on 4,096 rows for n = 7 (peripheral + metabolite + 3
+   transit, small_expm) and n = 9 (7 transit, matrix_exp);
+23. `pharmaco_pt`: SamplerPT over that likelihood at `one`'s width and
+   depth (prior XML in the work directory, uniform around bench's values);
+24. `pk_single_one`: SamplerPT over the single-patient model `one` (the
+   bench trial's patient 1) at `one`'s width and depth, through B1; the
+   card against the CPU on 256 prior draws for `one` and `two`;
+25. `pk_single_one_transit`: one evaluation at one_transit's width through
+   B2; the card against the CPU on 64 prior draws, both float32 solves
+   from float32 rows, the central compartment at B2's stack tolerance
+   (rtol 3e-4, atol 3e-6 x dose) with equal finite sets, except on the
+   rows where the CPU's own solve leaves that tolerance under its
+   parameters' float32 rounding (at most 1 in 16, logged);
+26. `ode_dll`: the ODE template with a harmonic derivative at 8,192 rows
+   (float64), the card against the CPU on 64; the C plugin of
+   tests/fixtures/plugins built with cc and evaluated at 65,536 rows of
+   the card, its host time a row.
 
 The kernels' launch counters are set to 0 just before each slice of the
-main path (phases 4-7, 9, 10 and 13-20) and read just after it, so the
-counts show that each slice itself went through the kernels (`cli_one`
-through B1 and B2; phases 13-15 and 20 run paths that no kernel serves;
-phases 16, 17 and 19 through B1 and B1T, phase 18 through B1).
+main path (phases 4-7, 9, 10, 13-20 and 22-26) and read just after it, so
+the counts show that each slice itself went through the kernels
+(`cli_one` through B1 and B2; phases 13-15, 20, 22, 23 and 26 run paths
+that no kernel serves; phases 16, 17 and 19 through B1 and B1T, phases 18
+and 24 through B1, phase 25 through B2).
 Any failed check raises, and the script exits non-zero without printing a
 result.
 
@@ -259,6 +287,42 @@ BANANA_GRADIENT = 8192
 BANANA_NUTS = dict(num_warmup=60, num_samples=40, max_tree_depth=5, seed=3)
 BANANA_HMC = dict(num_warmup=60, num_samples=60, num_leapfrog_steps=16, seed=1)
 SMC_REPLICATES = 16
+# the pharmacometric and generic likelihoods (phases 22-26):
+# pharmaco_population at bench.py bench_pharmaco's width (bench.py:430-472:
+# 524,288 rows of its values with _bench_batched_loglik's jitter 0.03, seed
+# 0, over synthesize_trial(16, 24, seed=31)), timed over PHARMACO_REPS
+# evaluations after a warm-up; the card's float32 against the CPU's float64
+# on PHARMACO_CPU_ROWS of them, and for two more configurations on
+# PHARMACO_WIDE_ROWS rows, within PHARMACO_RTOL with equal finite sets
+PHARMACO_ROWS = 524288
+PHARMACO_JITTER = 0.03
+PHARMACO_REPS = 3
+PHARMACO_CPU_ROWS = 256
+PHARMACO_WIDE_ROWS = 4096
+PHARMACO_RTOL = 1e-3
+PHARMACO_WIDE = {
+    # peripheral + metabolite + 3 transit: n = 7, small_expm
+    "n7": dict(use_peripheral=True, use_metabolite=True, num_transit=3),
+    # 7 transit: n = 9, torch.linalg.matrix_exp
+    "n9": dict(num_transit=7),
+}
+# pk_single: the bench trial's (NUM_PATIENTS x NUM_TIMEPOINTS, seed 42)
+# patient "1" at the slices' widths; card against CPU on this many prior
+# draws (PK_SINGLE_TRANSIT_ROWS for one_transit, at B2's float32 stack
+# tolerance, ROADMAP "Measured limits")
+PK_SINGLE_PATIENT = "1"
+PK_SINGLE_CPU_ROWS = 256
+PK_SINGLE_TRANSIT_ROWS = 64
+B2_STACK_RTOL, B2_STACK_ATOL = 3e-4, 3e-6  # the atol times the smallest dose
+# ode_dll: the ODE template's rows (float64: its tolerances, 1e-8, are below
+# float32's rounding), of which ODE_CPU_ROWS against the CPU to ODE_RTOL;
+# the C plugin's rows
+ODE_ROWS = 8192
+ODE_CPU_ROWS = 64
+ODE_RTOL = 1e-8
+PLUGIN_ROWS = 65536
+PLUGIN_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                             "plugins", "gaussian_plugin.c")
 # the device of phases 13-15 (a rehearsal on the CPU sets "cpu")
 CARD = "cuda"
 
@@ -352,16 +416,16 @@ def phase_build():
             log(f"  ptxas: {line.strip()}")
 
 
-def b2_inputs(models, gen):
-    """B2's inputs as the `one_transit` likelihood makes them from prior
-    draws: L = 4096 x 8 chains x 16 patients = 524,288 lanes, S = 38 stops,
-    per-patient (P, S) tables."""
+def b2_inputs(prior, lik, gen):
+    """B2's inputs as a transit likelihood makes them from prior draws of
+    one_transit's width, 4096 x 8 chains: for the population model 16
+    patients, so L = 524,288 lanes, S = 38 stops, per-patient (P, S)
+    tables; for the single-patient model L = 32,768 and one table."""
     import torch
 
     from bcm3_tpu_torch.ops.transit_kernels import LANE_PARAMS
 
     f32 = torch.float32
-    prior, lik = models["one_transit"]
     pk = lik.model
     xs = prior.sample(gen, (ENSEMBLES["one_transit"] * NUM_CHAINS,), f32)
     tb = pk._tables(xs.device, f32)
@@ -459,7 +523,7 @@ def phase_kernels(models, gen):
     )
 
     # B2: 524,288 lanes, S = 38 stops, on per-patient tables
-    params, grid, amt, kw = b2_inputs(models, gen)
+    params, grid, amt, kw = b2_inputs(*models["one_transit"], gen)
     trips = kw["trips"]
     slots = torch.zeros(1, dtype=torch.int64, device="cuda")
     c, ok, n = b2(params, grid, amt, trip_counts=True, warp_slots=slots, **kw)
@@ -517,15 +581,22 @@ def phase_kernels(models, gen):
 
 
 def phase_slice(pk_type, models):
+    return pt_slice(f"slice {pk_type}", *models[pk_type], ENSEMBLES[pk_type],
+                    NUM_SAMPLES[pk_type])
+
+
+def pt_slice(name, prior, lik, E, num_samples):
+    """SamplerPT over (prior, lik) at NUM_CHAINS x E chains, num_samples
+    emitted samples thinned by USE_EVERY_NTH, no adaptation: a cold run
+    (its outputs checked), a warm run for the wall of its iterations, and
+    one more under the profiler for the device's busy time."""
     import numpy as np
     import torch
 
     from bcm3_tpu_torch.sampler import PTConfig, SamplerPT
 
-    prior, lik = models[pk_type]
-    E = ENSEMBLES[pk_type]
     cfg = PTConfig(
-        num_samples=NUM_SAMPLES[pk_type],
+        num_samples=num_samples,
         use_every_nth=USE_EVERY_NTH,
         num_chains=NUM_CHAINS,
         num_ensembles=E,
@@ -535,7 +606,7 @@ def phase_slice(pk_type, models):
         seed=7,
         emit_dtype=torch.float32,
         emit_fixed_only=True,
-        device="cuda",
+        device=CARD,
         dtype=torch.float32,
     )
     sampler = SamplerPT(prior, lik, cfg)
@@ -548,7 +619,7 @@ def phase_slice(pk_type, models):
     assert np.isfinite(res["samples"]).all()
     mut, exc = sampler.acceptance_rates(sampler.state)
     assert 0.0 < mut[-1] < 1.0, f"T=1 mutate acceptance {mut[-1]}"
-    log(f"slice {pk_type}: {NUM_CHAINS} x {E} chains, {res['evaluations']} evaluations "
+    log(f"{name}: {NUM_CHAINS} x {E} chains, {res['evaluations']} evaluations "
         f"in {res['elapsed_seconds']:.3f} s = {res['evals_per_second']:.1f} evals/s; "
         f"mutate acceptance by temperature {np.round(mut, 4).tolist()}, "
         f"exchange {np.round(exc, 4).tolist()}")
@@ -560,12 +631,12 @@ def phase_slice(pk_type, models):
     wall_ms = warm["sampling_seconds"] * 1e3 / iterations
     busy_ms, top = profile_sampling(sampler, iterations)
     idle = "not measured" if busy_ms is None else f"{1.0 - busy_ms / wall_ms:.4f}"
-    log(f"slice {pk_type} steady state: {iterations} iterations, wall "
+    log(f"{name} steady state: {iterations} iterations, wall "
         f"{wall_ms:.4f} ms per iteration = {E * NUM_CHAINS / wall_ms * 1e3:.1f} evals/s; "
         f"device busy {busy_ms if busy_ms is not None else 'not measured'} ms per "
         f"iteration (under the profiler), idle share {idle}")
-    for name, ms in top:
-        log(f"  device ms per iteration {ms:.4f}  {name[:120]}")
+    for kernel, ms in top:
+        log(f"  device ms per iteration {ms:.4f}  {kernel[:120]}")
     return dict(res, wall_ms=wall_ms, busy_ms=busy_ms)
 
 
@@ -2101,6 +2172,416 @@ def phase_banana_gradient(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The pharmacometric and generic likelihoods (phases 22-26)
+
+
+def write_uniform_prior(path, spec):
+    """A prior.xml of uniform variables: spec is (name, logspace, lower,
+    upper) per variable."""
+    lines = ['<?xml version="1.0" encoding="utf-8"?>', "<prior>"]
+    for name, logspace, lo, hi in spec:
+        ls = ' logspace="true"' if logspace else ""
+        lines.append(f'  <variable name="{name}" distribution="uniform"{ls} lower="{lo}" '
+                     f'upper="{hi}"/>')
+    lines.append("</prior>")
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+
+
+def pharmaco_model(workdir, cfg_kw=None):
+    """bench.py bench_pharmaco's pharmaco_population likelihood (16
+    patients x 24 observations, trial seed 31, lapatinib, a random effect on
+    absorption, an additive sd), with the rates of cfg_kw's options after
+    its variables; the prior (its XML written to workdir, uniform around
+    the values) and the values: bench's, and the added rates'."""
+    import numpy as np
+
+    from bcm3_tpu_torch import Prior, VariableSet
+    from bcm3_tpu_torch.likelihoods import Likelihood
+    from bcm3_tpu_torch.likelihoods.pharmaco import (
+        PharmacoLikelihoodPopulation,
+        PharmacoModelConfig,
+    )
+    from bcm3_tpu_torch.likelihoods.poppk_synth import synthesize_trial
+
+    cfg_kw = cfg_kw or {}
+    # (name, logspace, value, lower, upper)
+    spec = [("mean_absorption", False, -0.3, -1.3, 0.7),
+            ("sigma_absorption", False, 0.2, 0.01, 1.0),
+            ("mean_clearance", False, np.log10(18.0), 0.5, 2.0),
+            ("mean_volume_of_distribution", False, np.log10(120.0), 1.5, 2.7)]
+    spec += [(f"p{j + 1}_absorption", False, 0.3 + 0.02 * j, 0.0, 1.0)
+             for j in range(NUM_PATIENTS)]
+    spec += [("additive_error_standard_deviation", False, 25.0, 1.0, 100.0)]
+    rates = {"use_peripheral": [("peripheral_forward_rate", 0.08),
+                                ("peripheral_backward_rate", 0.05)],
+             "use_metabolite": [("metabolite_conversion_rate", 0.1)],
+             "num_transit": [("mean_transit_time", 2.0)]}
+    for option in cfg_kw:
+        spec += [(name, True, np.log10(v), np.log10(v) - 1.0, np.log10(v) + 1.0)
+                 for name, v in rates[option]]
+    name = "_".join(f"{k}{v}" for k, v in cfg_kw.items()) or "bench"
+    path = os.path.join(workdir, f"prior_pharmaco_{name}.xml")
+    write_uniform_prior(path, [(n, ls, lo, hi) for n, ls, _, lo, hi in spec])
+    varset = VariableSet.from_xml(path)
+    trial, _ = synthesize_trial(num_patients=NUM_PATIENTS, num_timepoints=NUM_TIMEPOINTS,
+                                seed=31)
+    model = PharmacoLikelihoodPopulation(varset, trial, "lapatinib",
+                                         PharmacoModelConfig(**cfg_kw))
+    lik = Likelihood("pharmaco_population", model.log_prob_batched, model=model)
+    return Prior.from_xml(path, varset), lik, np.array([v for _, _, v, _, _ in spec])
+
+
+def bench_rows(values, rows, seed=0):
+    """_bench_batched_loglik's rows (bench.py:404-427): the values with
+    normal jitter PHARMACO_JITTER, float64 on the host."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return values[None, :] + PHARMACO_JITTER * rng.normal(size=(rows, len(values)))
+
+
+def pharmaco_card_vs_cpu(name, lik, xs):
+    """The card's float32 against the CPU's float64 on the rows xs (a
+    float64 numpy array): equal finite sets, every finite row within
+    PHARMACO_RTOL."""
+    import numpy as np
+    import torch
+
+    rows = torch.as_tensor(xs)
+    cpu = lik.log_prob_batched(rows).numpy()
+    card = lik.log_prob_batched(rows.to(CARD, torch.float32)).double().cpu().numpy()
+    fin = np.isfinite(cpu)
+    mismatched = int((np.isfinite(card) != fin).sum())
+    rel = np.abs(card[fin] - cpu[fin]) / np.abs(cpu[fin])
+    log(f"{name}: {int(fin.sum())}/{len(xs)} finite on the CPU, {mismatched} finite-set "
+        f"mismatches (limit 0), max rel err {rel.max():.3e} (limit {PHARMACO_RTOL}), median "
+        f"{np.median(rel):.3e}")
+    assert mismatched == 0 and fin.sum() >= len(xs) // 2
+    assert rel.max() <= PHARMACO_RTOL
+
+
+def phase_pharmaco(workdir, smi):
+    """pharmaco_population at bench.py bench_pharmaco's width (float32):
+    evals/s over PHARMACO_REPS evaluations after a warm-up, the finite
+    count, the peak memory, the device's busy share of one evaluation under
+    the profiler, and where the time goes (CUDA events): the parameters
+    and matrices, the step matrix expm(A * interval), the K-interval
+    recurrence, the read-out (its closed-form expm(A * offset) apart), and
+    the scoring. Then the card against the CPU on PHARMACO_CPU_ROWS rows,
+    and for the PHARMACO_WIDE configurations on PHARMACO_WIDE_ROWS."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bcm3_tpu_torch.likelihoods import pharmaco
+    from bcm3_tpu_torch.ode.linear_pk import _expm_2x2
+
+    _, lik, values = pharmaco_model(workdir)
+    m = lik.model
+    xs = bench_rows(values, PHARMACO_ROWS)
+    x = torch.as_tensor(xs, dtype=torch.float32, device=CARD)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    lp = lik.log_prob_batched(x)
+    finite = int(torch.isfinite(lp).sum())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(PHARMACO_REPS):
+        lp = lik.log_prob_batched(x)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3 / PHARMACO_REPS
+    peak = torch.cuda.max_memory_allocated() - held
+    del lp
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lik.log_prob_batched(x)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    idle = "not measured" if busy_ms <= 0 else f"{1.0 - busy_ms / wall_ms:.4f}"
+    B, P, T = PHARMACO_ROWS, NUM_PATIENTS, NUM_TIMEPOINTS
+    log(f"pharmaco_population: {B} rows x {P} patients x {T} observations, K = "
+        f"{m.schedule.dose_amount.shape[1]} intervals, n = {m.cfg.num_compartments}, float32: "
+        f"{wall_ms:.3f} ms an evaluation (host clock, synchronized, mean of {PHARMACO_REPS}) = "
+        f"{B / wall_ms * 1e3:.1f} evals/s; {finite}/{B} finite; peak memory "
+        f"{peak / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held before; device busy "
+        f"{busy_ms:.3f} ms ({len(device)} device operations) under the profiler, idle share "
+        f"{idle}; on {smi}")
+    assert finite >= B // 2
+
+    tb = m._tables(x.device, x.dtype)
+    params_ms = cuda_ms(lambda: m._params(x), 3)
+    A, bio, _, _, _ = m._params(x)
+    step_ms = cuda_ms(lambda: pharmaco.expm(A * tb["interval"][:, None, None]), 3)
+    starts_ms = cuda_ms(
+        lambda: pharmaco.interval_starts(A, tb["interval"], tb["dose_amount"], bio), 3)
+    solve_ms = cuda_ms(lambda: m._solve(A, bio, tb), 3)
+    off = tb["obs_offset"][None]
+    entries = [A[..., i, j][:, :, None] * off for i in (0, 1) for j in (0, 1)]
+    readout_expm_ms = cuda_ms(lambda: _expm_2x2(*entries, 1.0), 3)
+    del A, bio, entries
+    total_ms = cuda_ms(lambda: lik.log_prob_batched(x), 3)
+    readout_ms = solve_ms - starts_ms
+    log("pharmaco_population time by stage (CUDA events, ms an evaluation): " + json.dumps({
+        "evaluation": total_ms, "parameters_and_matrices": params_ms,
+        "step_matrix_expm": step_ms, "interval_starts_with_step_expm": starts_ms,
+        "read_out": readout_ms, "read_out_expm": readout_expm_ms,
+        "scoring": total_ms - params_ms - solve_ms,
+        "expm_share": (step_ms + readout_expm_ms) / total_ms,
+        "read_out_share": readout_ms / total_ms}))
+    del x
+    torch.cuda.empty_cache()
+
+    pharmaco_card_vs_cpu("card vs CPU pharmaco_population", lik, xs[:PHARMACO_CPU_ROWS])
+    for name, cfg_kw in PHARMACO_WIDE.items():
+        _, wide, values = pharmaco_model(workdir, cfg_kw)
+        rows = bench_rows(values, PHARMACO_WIDE_ROWS)
+        ms = cuda_ms(lambda: wide.log_prob_batched(
+            torch.as_tensor(rows, dtype=torch.float32, device=CARD)), 1)
+        log(f"pharmaco_population {name} (n = {wide.model.cfg.num_compartments}): "
+            f"{PHARMACO_WIDE_ROWS} rows in {ms:.3f} ms (CUDA events); on {smi}")
+        pharmaco_card_vs_cpu(f"card vs CPU pharmaco_population {name}", wide, rows)
+    return PHARMACO_ROWS / wall_ms * 1e3
+
+
+def phase_pharmaco_pt(workdir, smi):
+    """SamplerPT over bench_pharmaco's likelihood at `one`'s width and
+    depth."""
+    prior, lik, _ = pharmaco_model(workdir)
+    res = pt_slice("pharmaco_pt", prior, lik, ENSEMBLES["one"], NUM_SAMPLES["one"])
+    log(f"pharmaco_pt on {smi}")
+    return res["evals_per_second"]
+
+
+# the single-patient layout (LikelihoodPharmacokineticTrajectory.cpp
+# :247-290): (name, lower, upper), all log10-space, as write_poppk_prior_xml
+# bounds the population's rates
+_PK_SINGLE_BASE = [("absorption", -2.0, 1.0), ("excretion", -4.0, 0.0),
+                   ("elimination", -1.0, 1.5), ("volume_of_distribution", 1.0, 3.0)]
+_PK_SINGLE_PERIPHERY = [("k_periphery_fwd", -3.0, 0.0), ("k_periphery_bwd", -3.0, 0.0)]
+_PK_SINGLE_TRANSIT = [("n_transit", 0.0, 1.0), ("mean_transit_time", -1.0, 1.5)]
+_PK_SINGLE_SD = [("standard_deviation", 0.0, 2.5), ("standard_deviation2", -3.0, 0.5)]
+
+
+def pk_single_model(pk_type, workdir):
+    """The pharmacokinetic_trajectory likelihood of the bench trial's
+    patient PK_SINGLE_PATIENT, and its prior from its XML."""
+    from bcm3_tpu_torch import Prior, VariableSet
+    from bcm3_tpu_torch.likelihoods import Likelihood
+    from bcm3_tpu_torch.likelihoods.pk_single import SinglePatientPKLikelihood, select_patient
+    from bcm3_tpu_torch.likelihoods.poppk_synth import synthesize_trial
+
+    spec = list(_PK_SINGLE_BASE)
+    if pk_type in ("two", "two_transit"):
+        spec += _PK_SINGLE_PERIPHERY
+    if pk_type in ("one_transit", "two_transit"):
+        spec += _PK_SINGLE_TRANSIT
+    spec += _PK_SINGLE_SD
+    path = os.path.join(workdir, f"prior_pk_single_{pk_type}.xml")
+    write_uniform_prior(path, [(n, True, lo, hi) for n, lo, hi in spec])
+    varset = VariableSet.from_xml(path)
+    trial, _ = synthesize_trial(num_patients=NUM_PATIENTS, num_timepoints=NUM_TIMEPOINTS,
+                                seed=42)
+    pk = SinglePatientPKLikelihood(varset, select_patient(trial, PK_SINGLE_PATIENT), pk_type,
+                                   "lapatinib")
+    lik = Likelihood("pharmacokinetic_trajectory", pk.log_prob_batched, model=pk)
+    return Prior.from_xml(path, varset), lik
+
+
+def phase_kernels_one_patient(single, gen):
+    """B1 and B2 at P = 1, on the inputs the single-patient likelihood makes
+    from prior draws at the slices' widths (B1: 65,536 lanes, B2: 32,768),
+    bit for bit against their plain versions on the card."""
+    import torch
+
+    from bcm3_tpu_torch.ops.poppk_kernels import (
+        propagate_intervals_one_compartment as b1,
+        propagate_intervals_plain as b1_plain,
+    )
+    from bcm3_tpu_torch.ops.transit_kernels import transit_solve as b2
+    from bcm3_tpu_torch.ops.transit_kernels import transit_solve_plain as b2_plain
+
+    prior, lik = single["one"]
+    pk = lik.model
+    xs = prior.sample(gen, (ENSEMBLES["one"] * NUM_CHAINS,), torch.float32)
+    tb = pk._tables(xs.device, torch.float32)
+    p, _, _ = pk._patient_params(xs)
+    B, P = p["ka"].shape
+    args = (p["ka"].contiguous(), p["ke"][:, None].expand(B, P).contiguous(),
+            p["kel"].contiguous(), tb["initial_dose"], tb["interval"], tb["dose_amount"])
+    g, c = b1(*args)
+    gp, cp = b1_plain(*args)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(gp) & torch.isfinite(cp)
+    same_set = torch.equal(fin, torch.isfinite(g) & torch.isfinite(c))
+    differ = int(((g != gp) | (c != cp))[fin].sum())
+    log(f"B1 at P = 1 (B = {B}, K = {pk.K}): {int(fin.sum())}/{fin.numel()} finite, same finite "
+        f"set {same_set}, {differ} finite values differ from the plain version (limit 0)")
+    assert P == 1 and same_set and differ == 0
+
+    params, grid, amt, kw = b2_inputs(*single["one_transit"], gen)
+    c, ok, n = b2(params, grid, amt, trip_counts=True, **kw)
+    cp, okp, n_p = b2_plain(params, grid, amt, trip_counts=True, **kw)
+    torch.cuda.synchronize()
+    L = len(ok)
+    ok_differ, trips_differ = int((ok != okp).sum()), int((n != n_p).sum())
+    both = ok & okp
+    differ = int((c[both] != cp[both]).sum())
+    log(f"B2 at P = 1 (L = {L}, S = {grid.shape[1]}): ok {int(ok.sum())}/{L}, {ok_differ} lanes "
+        f"differ in ok, {trips_differ} in trips, {differ} central values of the finished lanes "
+        f"(limits 0)")
+    assert grid.shape[0] == 1 and ok_differ == 0 and trips_differ == 0 and differ == 0
+    assert int(both.sum()) > L // 10
+
+
+def phase_pk_single_one(single, smi):
+    """pharmacokinetic_trajectory `one` through SamplerPT at the `one`
+    slice's width and depth (through B1), then the card against the CPU
+    for `one` and `two` on PK_SINGLE_CPU_ROWS prior draws."""
+    import torch
+
+    res = pt_slice("pk_single_one", *single["one"], ENSEMBLES["one"], NUM_SAMPLES["one"])
+    log(f"pk_single_one on {smi}")
+    for pk_type in ("one", "two"):
+        prior, lik = single[pk_type]
+        xs = prior.sample(torch.Generator().manual_seed(5), (PK_SINGLE_CPU_ROWS,), torch.float64)
+        card = lik.log_prob_batched(xs.to(CARD, torch.float32)).double().cpu().numpy()
+        card_vs_cpu(f"card vs CPU pk_single {pk_type}", pk_type, lik, xs, card)
+    return res["evals_per_second"]
+
+
+def phase_pk_single_one_transit(single, smi):
+    """pharmacokinetic_trajectory `one_transit`: one evaluation at
+    one_transit's width (through B2); the card against the CPU on
+    PK_SINGLE_TRANSIT_ROWS prior draws, both solving in float32 (B2 and
+    its plain version) from float32 rows: the central compartment at B2's
+    stack tolerance with equal finite sets, and the log-likelihoods
+    against the CPU's float64 rows as card_vs_cpu holds the transit
+    models."""
+    import numpy as np
+    import torch
+
+    prior, lik = single["one_transit"]
+    m = lik.model
+    gen = torch.Generator(device=CARD).manual_seed(11)
+    x = prior.sample(gen, (NUM_CHAINS * ENSEMBLES["one_transit"],), torch.float32)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    lp = lik.log_prob_batched(x)
+    stop.record()
+    torch.cuda.synchronize()
+    log(f"pk_single_one_transit: one evaluation of {len(x)} prior draws: "
+        f"{start.elapsed_time(stop):.3f} ms (CUDA events), "
+        f"{float(torch.isfinite(lp).double().mean()):.4f} of them finite; on {smi}")
+
+    xs = prior.sample(torch.Generator().manual_seed(5), (PK_SINGLE_TRANSIT_ROWS,),
+                      torch.float64)
+
+    def central(rows):
+        p, _, _ = m._patient_params(rows)
+        return m._central_transit(p, m._tables(rows.device, rows.dtype), rows.dtype)[:, 0]
+
+    card = central(xs.to(CARD, torch.float32)).cpu().double().numpy()
+    cpu = central(xs.float()).double().numpy()
+    fin = np.isfinite(cpu).all(axis=1)
+    same_set = np.array_equal(np.isfinite(card).all(axis=1), fin)
+    atol = B2_STACK_ATOL * float(m.trial.dose.min())
+
+    def excess(a, b):  # per row, the largest excess over the stack tolerance
+        return (np.abs(a - b) - (B2_STACK_RTOL * np.abs(b) + atol)).max(axis=1)
+
+    # rows where the CPU's own float32 solve leaves the stack tolerance when
+    # its parameters move by their float32 rounding (the same rows' float64
+    # parameters rounded once): there the adaptive step sequence, not the
+    # device, decides the result (a step over the narrow transit pulse
+    # after a dose), ROADMAP "Measured limits"
+    unstable = fin & (excess(cpu, central(xs).double().numpy()) > 0)
+    held = fin & ~unstable
+    worst = excess(card[held], cpu[held]).max()
+    log(f"card vs CPU pk_single one_transit central (float32 on both): {int(fin.sum())}/"
+        f"{len(xs)} rows finite, same finite set {same_set}; {int(unstable.sum())} rows whose "
+        f"CPU solve leaves rtol {B2_STACK_RTOL} + atol {atol:.3e} under its parameters' "
+        f"float32 rounding (limit {len(xs) // 16}), on them the card's largest excess "
+        f"{excess(card[unstable], cpu[unstable]).max(initial=0.0):.3e} (logged); on the other "
+        f"{int(held.sum())} rows the largest excess {worst:.3e} (limit 0)")
+    assert same_set and held.sum() >= len(xs) // 4 and worst <= 0
+    assert unstable.sum() <= len(xs) // 16
+    card_lp = lik.log_prob_batched(xs.to(CARD, torch.float32)).double().cpu().numpy()
+    card_vs_cpu("card vs CPU pk_single one_transit", "one_transit", lik, xs, card_lp)
+
+
+def harmonic_derivative(t, y, params):
+    """The ODE template's harmonic oscillator (tests/test_ode_and_plugin.py
+    :43-61), lanes first: y0' = y1, y1' = -w^2 y0 with w = 1/2300, two
+    inert states."""
+    import torch
+
+    w = 1.0 / 2300.0
+    z = torch.zeros_like(y[:, 0])
+    return torch.stack([y[:, 1], -w * w * y[:, 0], z, z], dim=-1)
+
+
+def phase_ode_dll(workdir, smi):
+    """The ODE template at ODE_ROWS rows with the harmonic derivative
+    (float64) and its seconds, the card against the CPU on ODE_CPU_ROWS;
+    the C plugin of tests/fixtures/plugins built here with cc and
+    evaluated at PLUGIN_ROWS rows of the card, its host time a row."""
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch import VariableSet, create_likelihood
+
+    vs = VariableSet()
+    for i in range(13):
+        vs.add_variable(f"p{i}")
+    lik = create_likelihood("ODE", vs, _derivative=harmonic_derivative)
+    rng = np.random.default_rng(4)
+    rows = rng.uniform(0.1, 1.3, (ODE_ROWS, 13))
+    rows[:, 9] = 100.0 + 20.0 * rng.normal(size=ODE_ROWS)  # data: 100 cos(t/2300) + 300
+    x = torch.as_tensor(rows, device=CARD)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lp = lik.log_prob_batched(x)
+    torch.cuda.synchronize()
+    ode_seconds = time.perf_counter() - t
+    card = lp[:ODE_CPU_ROWS].cpu().numpy()
+    cpu = lik.log_prob_batched(torch.as_tensor(rows[:ODE_CPU_ROWS])).numpy()
+    fin = np.isfinite(cpu)
+    same_set = np.array_equal(np.isfinite(card), fin)
+    rel = np.abs(card[fin] - cpu[fin]) / np.abs(cpu[fin])
+    log(f"ode_template: {ODE_ROWS} rows (float64, harmonic derivative) in {ode_seconds:.3f} s, "
+        f"{int(torch.isfinite(lp).sum())} finite; card vs CPU on {ODE_CPU_ROWS} rows: same "
+        f"finite set {same_set}, max rel err {rel.max():.3e} (limit {ODE_RTOL}); on {smi}")
+    assert same_set and fin.all() and rel.max() <= ODE_RTOL
+
+    so = os.path.join(workdir, "gaussian_plugin.so")
+    subprocess.run(["cc", "-shared", "-fPIC", "-O2", "-o", so, PLUGIN_SOURCE], check=True,
+                   timeout=120)
+    vs = VariableSet()
+    for i in range(4):
+        vs.add_variable(f"x{i}")
+    plugin = create_likelihood("dll", vs, dll_filename_base=so[:-3])
+    gen = torch.Generator(device=CARD).manual_seed(2)
+    x = 2.0 * torch.randn((PLUGIN_ROWS, 4), generator=gen, device=CARD)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lp = plugin.log_prob_batched(x)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    v = x.double().cpu().numpy()
+    ref = np.where(np.abs(v[:, 0]) <= 5.0, -0.5 * (v * v).sum(axis=1), -np.inf)
+    got = lp.double().cpu().numpy()
+    fails = int(np.isneginf(ref).sum())
+    log(f"dll (C plugin, host ctypes calls): {PLUGIN_ROWS} rows of the card in {seconds:.3f} s "
+        f"= {seconds / PLUGIN_ROWS * 1e6:.3f} us a row on the host, {fails} false returns "
+        f"scored -inf; on {smi}")
+    assert lp.device.type == x.device.type and np.array_equal(np.isneginf(got), np.isneginf(ref))
+    np.testing.assert_allclose(got[np.isfinite(ref)], ref[np.isfinite(ref)], rtol=1e-6)
+    return ODE_ROWS / ode_seconds
+
+
 def main(workdir):
     phase_times = {}
 
@@ -2120,9 +2601,11 @@ def main(workdir):
 
     timed("build", phase_build)
     models = {k: build_model(k, workdir) for k in ("one", "one_transit")}
+    single = {k: pk_single_model(k, workdir) for k in ("one", "two", "one_transit")}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     kernels = timed("kernels", phase_kernels, models, gen)
+    timed("kernels_one_patient", phase_kernels_one_patient, single, gen)
 
     counters = {"poppk_propagate": poppk_kernels.propagate_intervals_one_compartment,
                 "transit_dp5": transit_kernels.transit_solve,
@@ -2176,6 +2659,18 @@ def main(workdir):
     }
     torch.cuda.empty_cache()
     main_path("banana_gradient", (), phase_banana_gradient, smi)
+    # the pharmacometric and generic likelihoods: pharmaco_population, ODE
+    # and dll reach no kernel (none in the JAX package either); the
+    # single-patient PK model runs `one` through B1 and `one_transit`
+    # through B2
+    evals["pharmaco_population"] = main_path("pharmaco_population", (), phase_pharmaco,
+                                             workdir, smi)
+    evals["pharmaco_pt"] = main_path("pharmaco_pt", (), phase_pharmaco_pt, workdir, smi)
+    evals["pk_single_one"] = main_path("pk_single_one", ("poppk_propagate",),
+                                       phase_pk_single_one, single, smi)
+    main_path("pk_single_one_transit", ("transit_dp5",), phase_pk_single_one_transit, single,
+              smi)
+    evals["ode_template"] = main_path("ode_dll", (), phase_ode_dll, workdir, smi)
     launches = {k: sum(p[k] for p in paths.values()) for k in counters}
     log(f"main-path launches: {launches}; per slice {json.dumps(paths)}")
 

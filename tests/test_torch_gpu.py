@@ -15,7 +15,9 @@ and assigns clusters on the card. A run interrupted at a boundary and
 resumed from its checkpoint equals the uninterrupted run bit for bit on
 the card, and the CLI's predict core on the card agrees with the CPU's.
 The analytic targets and the PopPK models two, one_biphasic_uptake and
-two_transit evaluate on the card as on the CPU.
+two_transit evaluate on the card as on the CPU, and so do the general-PK
+likelihood (pharmaco_population), the single-patient PK likelihood
+(through B1 and B2 at P = 1) and the ODE template.
 
 Each kernel is held to its plain PyTorch version on the same inputs:
 - B1: rtol 1e-5 in float32, 1e-12 in float64;
@@ -28,7 +30,9 @@ Each kernel is held to its plain PyTorch version on the same inputs:
 - B2 (float32): the kernel is built without FMA contraction and with the
   accurate exp/log/pow, and rounds like its plain version, so the two
   take the same step sequence: `ok` and the trip counts are equal on
-  every lane, and central is bit-identical on the lanes that finish.
+  every lane, and central is bit-identical on the lanes that finish;
+- B1 and B2 at one patient (P = 1, the single-patient likelihood's
+  shape): bit for bit.
 """
 
 import numpy as np
@@ -65,7 +69,8 @@ def _b1_inputs(B, P, K, dtype, device, seed=0):
     ka = rng.uniform(0.05, 3.0, (B, P))
     ke = rng.uniform(1e-4, 0.1, (B, P))
     kel = rng.uniform(0.01, 0.5, (B, P))
-    kel[0, 1] = ka[0, 1] + ke[0, 1]  # degenerate lane: ka + ke == kel
+    j = min(1, P - 1)
+    kel[0, j] = ka[0, j] + ke[0, j]  # degenerate lane: ka + ke == kel
     dose = rng.uniform(50, 150, (P, K))
     dose[:, min(3, K - 1)] = 0.0  # a skipped dose
     args = (ka, ke, kel, rng.uniform(100, 200, P), rng.uniform(12, 24, P), dose)
@@ -603,3 +608,148 @@ def test_other_pk_models_on_the_card_match_cpu(cuda, tmp_path, pk_type):
         both = fin & torch.isfinite(card32)
         assert both.sum() >= 16
         torch.testing.assert_close(card32[both], cpu[both], rtol=1e-3, atol=0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_at_one_patient_match_plain_bit_for_bit(cuda, dtype):
+    """B1 and B2 with P = 1 (every lane the same patient): bit for bit
+    against their plain versions, with the same finite set."""
+    args = _b1_inputs(B=4001, P=1, K=14, dtype=dtype, device=cuda)
+    g, c = propagate_intervals_one_compartment(*args)
+    g_ref, c_ref = propagate_intervals_plain(*args)
+    for got, ref in ((g, g_ref), (c, c_ref)):
+        assert got.shape == (14, 4001, 1)
+        fin = torch.isfinite(ref)
+        assert torch.equal(torch.isfinite(got), fin) and fin.all()
+        assert torch.equal(got, ref)
+    if dtype == torch.float32:  # B2 solves in float32 only
+        params, grid, amt = _b2_inputs(3000, cuda, seed=3)
+        params["dose0"] = params["dose0"][:1].contiguous()
+        ok, _, _ = _b2_against_plain(params, grid[:1].contiguous(), amt[:1].contiguous(),
+                                     **_B2_KW)
+        assert ok.sum().item() > 2000
+
+
+def _pharmaco_case(cfg_kw):
+    """bench.py bench_pharmaco's likelihood over 6 patients, with the rates
+    of cfg_kw's options, and 256 rows of its values with jitter 0.03."""
+    from bcm3_tpu_torch import VariableSet
+    from bcm3_tpu_torch.likelihoods.pharmaco import (
+        PharmacoLikelihoodPopulation,
+        PharmacoModelConfig,
+    )
+    from bcm3_tpu_torch.likelihoods.poppk_synth import synthesize_trial
+
+    P = 6
+    spec = [("mean_absorption", -0.3), ("sigma_absorption", 0.2),
+            ("mean_clearance", np.log10(18.0)), ("mean_volume_of_distribution", np.log10(120.0))]
+    spec += [(f"p{j + 1}_absorption", 0.3 + 0.02 * j) for j in range(P)]
+    spec += [("additive_error_standard_deviation", 25.0)]
+    rates = []  # log10-space
+    if cfg_kw.get("use_peripheral"):
+        rates += [("peripheral_forward_rate", -1.1), ("peripheral_backward_rate", -1.3)]
+    if cfg_kw.get("use_metabolite"):
+        rates += [("metabolite_conversion_rate", -1.0)]
+    if cfg_kw.get("num_transit"):
+        rates += [("mean_transit_time", 0.3)]
+    vs = VariableSet()
+    for name, _ in spec:
+        vs.add_variable(name)
+    for name, _ in rates:
+        vs.add_variable(name, logspace=True)
+    spec += rates
+    trial, _ = synthesize_trial(num_patients=P, num_timepoints=12, seed=31)
+    lik = PharmacoLikelihoodPopulation(vs, trial, "lapatinib", PharmacoModelConfig(**cfg_kw))
+    vals = np.array([v for _, v in spec])
+    xs = vals + 0.03 * np.random.default_rng(0).normal(size=(256, len(vals)))
+    return lik, torch.as_tensor(xs)
+
+
+@pytest.mark.parametrize(
+    "cfg_kw", [{}, dict(use_peripheral=True, use_metabolite=True, num_transit=3),
+               dict(num_transit=7)], ids=["n2", "n7", "n9"])
+def test_pharmaco_population_on_the_card_matches_cpu(cuda, cfg_kw):
+    """float64 on the card against the CPU to rtol 1e-10, float32 to rtol
+    1e-3, with equal finite sets (n = 2 closed form, n = 7 small_expm,
+    n = 9 matrix_exp)."""
+    lik, xs = _pharmaco_case(cfg_kw)
+    cpu = lik.log_prob_batched(xs)
+    fin = torch.isfinite(cpu)
+    assert fin.all()
+    card = lik.log_prob_batched(xs.to(cuda))
+    assert card.device.type == cuda.type and card.dtype == torch.float64
+    torch.testing.assert_close(card.cpu(), cpu, rtol=1e-10, atol=0.0)
+    card32 = lik.log_prob_batched(xs.to(cuda, torch.float32)).cpu().double()
+    assert torch.isfinite(card32).all()
+    torch.testing.assert_close(card32, cpu, rtol=1e-3, atol=0.0)
+
+
+@pytest.mark.parametrize("pk_type", ["one", "one_transit"])
+def test_pk_single_on_the_card_matches_cpu(cuda, tmp_path, pk_type):
+    """The single-patient PK likelihood on the card launches B1 (`one`) or
+    B2 (`one_transit`) at P = 1. `one`: float32 against the CPU's float64
+    to rtol 1e-3; `one_transit`: both float32 (B2 and its plain version),
+    the central compartment within B2's float32 stack tolerance (rtol
+    3e-4, atol 3e-6 x dose) with equal finite sets."""
+    from bcm3_tpu_torch.likelihoods.pk_single import SinglePatientPKLikelihood, select_patient
+    from bcm3_tpu_torch.likelihoods.poppk_synth import synthesize_trial
+    from bcm3_tpu_torch import VariableSet
+
+    names = ["absorption", "excretion", "elimination", "volume_of_distribution"]
+    vals = [np.log10(0.5), np.log10(0.03), np.log10(2.0), np.log10(120.0)]
+    if pk_type == "one_transit":
+        names += ["n_transit", "mean_transit_time"]
+        vals += [np.log10(3.0), np.log10(2.0)]
+    names += ["standard_deviation", "standard_deviation2"]
+    vals += [np.log10(20.0), np.log10(0.08)]
+    vs = VariableSet()
+    for name in names:
+        vs.add_variable(name, logspace=True)
+    trial, _ = synthesize_trial(num_patients=4, num_timepoints=12, seed=3)
+    m = SinglePatientPKLikelihood(vs, select_patient(trial, "2"), pk_type, "lapatinib")
+    jitter = 0.1 * np.random.default_rng(1).normal(size=(64, len(vals)))
+    xs = torch.as_tensor(np.array(vals) + jitter)
+    counter = propagate_intervals_one_compartment if pk_type == "one" else transit_solve
+    before = counter.launches
+    card = m.log_prob_batched(xs.to(cuda, torch.float32)).cpu().double()
+    assert counter.launches == before + 1
+    if pk_type == "one":
+        cpu = m.log_prob_batched(xs)
+        assert torch.isfinite(cpu).all() and torch.isfinite(card).all()
+        torch.testing.assert_close(card, cpu, rtol=1e-3, atol=0.0)
+        return
+
+    def central(rows):
+        p, _, _ = m._patient_params(rows)
+        return m._central_transit(p, m._tables(rows.device, rows.dtype), rows.dtype)[:, 0]
+
+    c_card = central(xs.to(cuda, torch.float32)).cpu()
+    c_cpu = central(xs.float())
+    fin = torch.isfinite(c_cpu).all(dim=1)
+    assert torch.equal(torch.isfinite(c_card).all(dim=1), fin) and fin.sum() >= 48
+    atol = 3e-6 * float(m.trial.dose.min())
+    torch.testing.assert_close(c_card[fin], c_cpu[fin], rtol=3e-4, atol=atol)
+
+
+def test_ode_template_on_the_card_matches_cpu(cuda):
+    """The ODE template with a harmonic derivative (lanes first), float64
+    on the card against the CPU to rtol 1e-8."""
+    from bcm3_tpu_torch import VariableSet, create_likelihood
+
+    def harmonic(t, y, params):
+        w = 1.0 / 2300.0
+        z = torch.zeros_like(y[:, 0])
+        return torch.stack([y[:, 1], -w * w * y[:, 0], z, z], dim=-1)
+
+    vs = VariableSet()
+    for i in range(13):
+        vs.add_variable(f"p{i}")
+    lik = create_likelihood("ODE", vs, _derivative=harmonic)
+    rng = np.random.default_rng(4)
+    rows = rng.uniform(0.1, 1.3, (256, 13))
+    rows[:, 9] = 100.0 + 20.0 * rng.normal(size=256)
+    xs = torch.as_tensor(rows)
+    cpu = lik.log_prob_batched(xs)
+    card = lik.log_prob_batched(xs.to(cuda)).cpu()
+    assert torch.isfinite(cpu).all()
+    torch.testing.assert_close(card, cpu, rtol=1e-8, atol=0.0)

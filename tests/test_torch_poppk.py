@@ -142,7 +142,7 @@ def test_unported_pk_types_raise(tmp_path, monkeypatch, pk_type):
 def test_unported_likelihood_type_raises(tmp_path):
     path = os.path.join(tmp_path, "lik.xml")
     with open(path, "w") as f:
-        f.write('<bcm_likelihood type="pharmaco_single"/>')
+        f.write('<bcm_likelihood type="cell_cycle_marker"/>')
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         create_likelihood(path, VariableSet())
 
