@@ -9,12 +9,15 @@ A JAX `ClusterAssigner` carries across the same way, so that both packages
 assign clusters with the same fit. The port keeps no PRNG key in its state (its randomness is the sampler's
 `torch.Generator`), so the JAX state's `key` is not read. The port's own
 checkpoints (io/checkpoint.py) rebuild their objects with the same
-functions.
+functions. The Incucyte likelihood's experiments carry across the same
+way (`incucyte_experiment_from_arrays`), so that both packages score the
+same data.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+import dataclasses
+from typing import TYPE_CHECKING, Mapping
 
 import numpy as np
 import torch
@@ -23,6 +26,9 @@ from bcm3_tpu_torch.sampler.proposal import BlockProposal
 from bcm3_tpu_torch.sampler.pt import PTState
 from bcm3_tpu_torch.sampler.spectral import ARRAY_FIELDS as ASSIGNER_FIELDS
 from bcm3_tpu_torch.sampler.spectral import ClusterAssigner
+
+if TYPE_CHECKING:
+    from bcm3_tpu_torch.likelihoods.cellmisc import IncucyteExperiment
 
 STATE_FIELDS = (
     "x", "lprior", "llh", "att_mut", "acc_mut", "att_exc", "acc_exc",
@@ -97,3 +103,19 @@ def cluster_assigner_from_arrays(
         nn=int(meta["nn"]),
         nn2=int(meta["nn2"]),
     )
+
+
+def incucyte_experiment_from_arrays(arrays: Mapping[str, object]) -> IncucyteExperiment:
+    """An IncucyteExperiment from the JAX package's experiment fields (e.g.
+    ``dataclasses.asdict(e)``): arrays as float64 numpy, the treatment
+    time and seeding density as floats, the index as an int. The cell
+    likelihoods are imported here, not with this module, which the
+    checkpoint loader imports."""
+    from bcm3_tpu_torch.likelihoods.cellmisc import IncucyteExperiment
+
+    scalars = {"treatment_time": float, "seeding_density": float, "experiment_ix": int}
+    return IncucyteExperiment(**{
+        f.name: scalars[f.name](arrays[f.name]) if f.name in scalars
+        else np.array(arrays[f.name], dtype=np.float64)
+        for f in dataclasses.fields(IncucyteExperiment)
+    })

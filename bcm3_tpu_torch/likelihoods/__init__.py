@@ -7,8 +7,10 @@ one evaluation entry is ``log_prob_batched(xs (B, D)) -> (B,)``. Ported:
 the analytic targets (``banana``, ``circular``, ``multimodal_gaussians``,
 ``truncated_t``, ``dummy``), ``pop_pk_trajectory``, the pharmacometric
 types (``pharmaco_single``, ``pharmaco_population``,
-``pharmacokinetic_trajectory``) and the generic ``ODE`` and ``dll``;
-every other type of the JAX package raises NotImplementedError naming its
+``pharmacokinetic_trajectory``), the generic ``ODE`` and ``dll``, and
+the cell likelihoods ``cell_cycle_marker``, ``mitosis_time_estimation``
+and ``incucyte_population``; the JAX package's other types
+(``cell_population``, ``fISA``) raise NotImplementedError naming their
 ROADMAP item (`_UNPORTED`). `fixed_parameter_likelihood` builds the
 likelihood of `--bcmopt`.
 """
@@ -154,6 +156,28 @@ def _dll(varset: VariableSet, attrs) -> Likelihood:
                       attrs=attrs)
 
 
+def _cell_cycle_marker(varset: VariableSet, attrs) -> Likelihood:
+    from bcm3_tpu_torch.likelihoods.cellmisc import create_cell_cycle_marker
+
+    model = create_cell_cycle_marker(varset, attrs)
+    return Likelihood("cell_cycle_marker", model.log_prob_batched, attrs=attrs, model=model)
+
+
+def _mitosis(varset: VariableSet, attrs) -> Likelihood:
+    from bcm3_tpu_torch.likelihoods.cellmisc import create_mitosis_time_estimation
+
+    model = create_mitosis_time_estimation(varset, attrs)
+    return Likelihood("mitosis_time_estimation", model.log_prob_batched, attrs=attrs,
+                      model=model)
+
+
+def _incucyte(varset: VariableSet, attrs) -> Likelihood:
+    from bcm3_tpu_torch.likelihoods.cellmisc import create_incucyte_population
+
+    model = create_incucyte_population(varset, attrs)
+    return Likelihood("incucyte_population", model.log_prob_batched, attrs=attrs, model=model)
+
+
 _REGISTRY: Dict[str, Callable[..., Likelihood]] = {
     "banana": _banana,
     "circular": _circular,
@@ -166,13 +190,13 @@ _REGISTRY: Dict[str, Callable[..., Likelihood]] = {
     "pharmacokinetic_trajectory": _pk_single,
     "ODE": _ode_template,
     "dll": _dll,
+    "cell_cycle_marker": _cell_cycle_marker,
+    "mitosis_time_estimation": _mitosis,
+    "incucyte_population": _incucyte,
 }
 
 # the JAX package's other types and the ROADMAP item that ports each
 _UNPORTED = {
-    "cell_cycle_marker": "A10",
-    "mitosis_time_estimation": "A10",
-    "incucyte_population": "A10",
     "cell_population": "A11",
     "fISA": "A12",
 }

@@ -141,10 +141,36 @@ Phases, each printing its lines before the last:
    tests/fixtures/plugins built with cc and evaluated at 65,536 rows of
    the card, its host time a row.
 
+27. `incucyte`: incucyte_population at bench.py bench_incucyte's
+   configuration (one experiment of 3 concentrations, 20 timepoints x 4
+   replicates, D = 32, G = 96, a 16-row delay ring; rows with jitter
+   0.002, float32), the batched DDE solve of ode/delay.py with every well
+   of every row a lane: evals/s at 3,072 (bench's batch), 65,536 and
+   524,288 rows, the finite count, peak memory, idle share, and at the
+   widest the time by stage (well setup, solve, interpolation, scoring);
+   the card's float32 and float64 against the CPU's float64 on 256 rows;
+   the ring solve of 65,536 rows under
+   torch.cuda.set_sync_debug_mode("error") (no host read); each of the
+   four solvers at G = 256 on 4,096 rows (float32, timed), against the
+   CPU's float64 on 64 of them;
+28. `incucyte_pt`: SamplerPT over that likelihood at 8 x 8,192 chains,
+   20 samples thinned by 5 (a uniform prior around bench's values), as
+   the slices run but with no second run: wall (of the one run) and busy
+   per iteration, idle share, acceptance;
+29. `mitosis`: mitosis_time_estimation over 32 cells x 30 timepoints of
+   boxcars from the model's own Sobol construction at 65,536 rows:
+   evals/s split into the cost on the card, its copy to the host and the
+   native Hungarian matching (native/lap.cpp, built with g++ at first
+   use); the native matching against scipy on 1,024 rows; the card
+   against the CPU on 256; one PT run of 8 x 8,192 chains, 4 samples
+   thinned by 5;
+30. `cell_cycle_marker`: the 220-point track at 65,536 rows: evals/s, the
+   card against the CPU.
+
 The kernels' launch counters are set to 0 just before each slice of the
-main path (phases 4-7, 9, 10, 13-20 and 22-26) and read just after it, so
+main path (phases 4-7, 9, 10, 13-20 and 22-30) and read just after it, so
 the counts show that each slice itself went through the kernels
-(`cli_one` through B1 and B2; phases 13-15, 20, 22, 23 and 26 run paths
+(`cli_one` through B1 and B2; phases 13-15, 20, 22, 23 and 26-30 run paths
 that no kernel serves; phases 16, 17 and 19 through B1 and B1T, phases 18
 and 24 through B1, phase 25 through B2).
 Any failed check raises, and the script exits non-zero without printing a
@@ -323,6 +349,67 @@ ODE_RTOL = 1e-8
 PLUGIN_ROWS = 65536
 PLUGIN_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                              "plugins", "gaussian_plugin.c")
+# the cell likelihoods (phases 27-30). incucyte: bench.py bench_incucyte's
+# configuration (bench.py:475-506: _incucyte_setup's experiment and values,
+# G = 96, ring 16; rows by _bench_batched_loglik, jitter 0.002, seed 0) at
+# bench's batch and two wider ones, float32, timed over INCUCYTE_REPS
+# evaluations after a warm-up; the card's float32 against the CPU's float64
+# on INCUCYTE_CPU_ROWS rows (within INCUCYTE_RTOL, equal finite sets) and
+# its float64 at F64_RTOL; each solver at G = INCUCYTE_SOLVER_GRID on
+# INCUCYTE_SOLVER_ROWS rows (float32, timed), held to the CPU's float64 on
+# INCUCYTE_SOLVER_CPU_ROWS of them within INCUCYTE_RTOL, with at most
+# SOLVER_FLIPS finite-set flips (a float32 step controller at rtol 1e-6
+# can exhaust a lane's trips where float64 does not: 1 of 4,096 lanes in
+# a first run on the card), and at most SOLVER_NONFINITE of the card's
+# rows not finite, each of them not finite on the CPU in float64 too (1 of
+# 4,096 for the adaptive solver in the runs so far: its 8 substeps an
+# interval do not reach the interval's end, in float32 and float64 alike);
+# the ring solve of INCUCYTE_SYNC_ROWS rows under the sync debug mode
+# "error"
+INCUCYTE_GRID, INCUCYTE_RING = 96, 16
+INCUCYTE_JITTER = 0.002
+INCUCYTE_WIDTHS = (3072, 65536, 524288)
+INCUCYTE_REPS = 3
+INCUCYTE_CPU_ROWS = 256
+INCUCYTE_RTOL = 1e-4
+F64_RTOL = 1e-10
+INCUCYTE_SOLVER_GRID = 256
+INCUCYTE_SOLVER_ROWS = 4096
+INCUCYTE_SOLVER_CPU_ROWS = 64
+# each solver's float64 on the card against the CPU's (tests/test_torch_gpu.py)
+SOLVER_RTOL = {"ring": 1e-10, "fixed": 1e-10, "budget": 1e-8, "adaptive": 1e-8}
+SOLVER_FLIPS = {"ring": 0, "fixed": 0, "budget": 1, "adaptive": 1}
+SOLVER_NONFINITE = {"ring": 0, "fixed": 0, "budget": 2, "adaptive": 2}
+INCUCYTE_SYNC_ROWS = 65536
+# the PT runs of phases 28-29 (8 chains x 8192 ensembles, thin 5); the
+# incucyte run profiled over INCUCYTE_PT_PROFILE_SAMPLES iterations of a
+# second sampler (an iteration launches ~8,000 operations, each one event
+# of the host's and one of the device's for the profiler to process)
+INCUCYTE_PT_SAMPLES = 20
+INCUCYTE_PT_PROFILE_SAMPLES = 2
+MITOSIS_PT_SAMPLES = 4
+# mitosis: 32 cells x 30 timepoints of boxcars from the model's own Sobol
+# construction at MITOSIS_TRUTH (tests/test_cellmisc.py:82-103), rows the
+# truth with normal jitter MITOSIS_JITTER; the native matching against
+# scipy on MITOSIS_SCIPY_ROWS rows (MATCH_RTOL), the card against the CPU
+# on MITOSIS_CPU_ROWS (float32 within MITOSIS_RTOL: the float32 rounding of
+# 10^x in the noise sd moves the totals by up to ~3e-5 of their size;
+# float64 at F64_RTOL)
+MITOSIS_CELLS, MITOSIS_TIMEPOINTS = 32, 30
+MITOSIS_TRUTH = (3.0, 1.5, 0.2)  # the sds; the variables are their log10
+MITOSIS_JITTER = 0.1
+MITOSIS_ROWS = 65536
+MITOSIS_SCIPY_ROWS = 1024
+MITOSIS_CPU_ROWS = 256
+MATCH_RTOL = 1e-12
+MITOSIS_RTOL = 1e-4
+# cell_cycle_marker: the 220-point track of tests/test_cellmisc.py:41-79
+# at CCM_ROWS rows of its truth with 10% normal jitter, float32; the card
+# against the CPU on CCM_CPU_ROWS (float32 within CCM_RTOL)
+CCM_TRUTH = (30.0, 60.0, 40.0, 6.0, 0.8, 0.3, 0.5, 0.4, 1.0, 0.02)
+CCM_ROWS = 65536
+CCM_CPU_ROWS = 256
+CCM_RTOL = 1e-4
 # the device of phases 13-15 (a rehearsal on the CPU sets "cpu")
 CARD = "cuda"
 
@@ -585,17 +672,14 @@ def phase_slice(pk_type, models):
                     NUM_SAMPLES[pk_type])
 
 
-def pt_slice(name, prior, lik, E, num_samples):
-    """SamplerPT over (prior, lik) at NUM_CHAINS x E chains, num_samples
-    emitted samples thinned by USE_EVERY_NTH, no adaptation: a cold run
-    (its outputs checked), a warm run for the wall of its iterations, and
-    one more under the profiler for the device's busy time."""
-    import numpy as np
+def pt_config(E, num_samples):
+    """The slices' PTConfig: NUM_CHAINS x E chains, num_samples emitted
+    samples thinned by USE_EVERY_NTH, no adaptation, float32 on CARD."""
     import torch
 
-    from bcm3_tpu_torch.sampler import PTConfig, SamplerPT
+    from bcm3_tpu_torch.sampler import PTConfig
 
-    cfg = PTConfig(
+    return PTConfig(
         num_samples=num_samples,
         use_every_nth=USE_EVERY_NTH,
         num_chains=NUM_CHAINS,
@@ -609,6 +693,23 @@ def pt_slice(name, prior, lik, E, num_samples):
         device=CARD,
         dtype=torch.float32,
     )
+
+
+def pt_slice(name, prior, lik, E, num_samples, profile_samples=None, warm=True):
+    """SamplerPT over (prior, lik) with `pt_config`: a cold run (its
+    outputs checked), a warm run for the wall of its iterations, and one
+    more under the profiler for the device's busy time; with
+    profile_samples, the profiled run is a second sampler's of that many
+    iterations (the profile counts only the sampling span, not its
+    start-position search); with warm=False, the wall is the cold run's
+    (for a likelihood that builds no kernel and whose iterations take
+    long enough that the first ones' allocations do not show)."""
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch.sampler import SamplerPT
+
+    cfg = pt_config(E, num_samples)
     sampler = SamplerPT(prior, lik, cfg)
     res = sampler.run()
     torch.cuda.synchronize()
@@ -627,11 +728,16 @@ def pt_slice(name, prior, lik, E, num_samples):
     # steady state: the same sampler runs again (kernels built, allocations
     # cached), once for the wall of its iterations and once under the profiler
     iterations = cfg.num_samples * cfg.use_every_nth
-    warm = sampler.run()
-    wall_ms = warm["sampling_seconds"] * 1e3 / iterations
-    busy_ms, top = profile_sampling(sampler, iterations)
+    timed_run = sampler.run() if warm else res
+    wall_ms = timed_run["sampling_seconds"] * 1e3 / iterations
+    if profile_samples is None:
+        busy_ms, top = profile_sampling(sampler, iterations)
+    else:
+        short = SamplerPT(prior, lik, dataclasses.replace(cfg, num_samples=profile_samples,
+                                                          use_every_nth=1))
+        busy_ms, top = profile_sampling(short, profile_samples)
     idle = "not measured" if busy_ms is None else f"{1.0 - busy_ms / wall_ms:.4f}"
-    log(f"{name} steady state: {iterations} iterations, wall "
+    log(f"{name} {'steady state' if warm else 'cold run'}: {iterations} iterations, wall "
         f"{wall_ms:.4f} ms per iteration = {E * NUM_CHAINS / wall_ms * 1e3:.1f} evals/s; "
         f"device busy {busy_ms if busy_ms is not None else 'not measured'} ms per "
         f"iteration (under the profiler), idle share {idle}")
@@ -1141,8 +1247,6 @@ def phase_poppk_models(workdir, smi):
     TWO_TRANSIT_ORACLE_DRAWS)."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from bcm3_tpu_torch.sampler import PTConfig, SamplerPT
 
@@ -1162,15 +1266,13 @@ def phase_poppk_models(workdir, smi):
             torch.cuda.synchronize()
             ms = start.elapsed_time(stop)
             finite = float(torch.isfinite(lp).double().mean())
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                lik.log_prob_batched(x)
-                torch.cuda.synchronize()
-            busy = sum(e.time_range.elapsed_us() for e in prof.events()
-                       if e.device_type == DeviceType.CUDA) / 1e3
+            # ~300,000 launches: the device alone is traced (with the host's
+            # operators too, the profile took most of this phase)
+            busy, _, prof_s = device_profile(lambda: lik.log_prob_batched(x))
             line = (f"{pk_type}: one evaluation of {NUM_CHAINS * E} prior draws x "
                     f"{NUM_PATIENTS} patients: {ms:.1f} ms (CUDA events), {finite:.4f} of "
-                    f"them finite, device busy {busy:.1f} ms under the profiler, idle share "
-                    f"{1.0 - busy / ms:.4f}")
+                    f"them finite, device busy {busy:.1f} ms under the profiler ({prof_s:.1f} "
+                    f"s, the device traced alone), idle share {1.0 - busy / ms:.4f}")
             evals[pk_type] = NUM_CHAINS * E / ms * 1e3
             del x, lp
         else:
@@ -1500,6 +1602,26 @@ def eigh_backends(hs, smi):
         + ", ".join(f"{lib} {ms:.3f} ms" for lib, ms in times.items())
         + ("" if torch.cuda.has_magma else ", magma not in this torch build")
         + f", CPU {cpu_ms:.3f} ms ({torch.get_num_threads()} threads); on {smi}")
+
+
+def device_profile(fn):
+    """(device busy ms, device operations, the profile's seconds) of one
+    fn() under the profiler, tracing the device only (the host's operator
+    events would double the events to process; two_transit's evaluation
+    launches ~300,000 operations). Raises if the trace holds no device
+    event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert device, "the profiler traced no device event"
+    return (sum(e.time_range.elapsed_us() for e in device) / 1e3, len(device),
+            time.perf_counter() - t)
 
 
 def profile_sampling(sampler, iterations):
@@ -2233,13 +2355,13 @@ def pharmaco_model(workdir, cfg_kw=None):
     return Prior.from_xml(path, varset), lik, np.array([v for _, _, v, _, _ in spec])
 
 
-def bench_rows(values, rows, seed=0):
+def bench_rows(values, rows, seed=0, jitter=PHARMACO_JITTER):
     """_bench_batched_loglik's rows (bench.py:404-427): the values with
-    normal jitter PHARMACO_JITTER, float64 on the host."""
+    normal jitter, float64 on the host."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    return values[None, :] + PHARMACO_JITTER * rng.normal(size=(rows, len(values)))
+    return values[None, :] + jitter * rng.normal(size=(rows, len(values)))
 
 
 def pharmaco_card_vs_cpu(name, lik, xs):
@@ -2582,6 +2704,394 @@ def phase_ode_dll(workdir, smi):
     return ODE_ROWS / ode_seconds
 
 
+# ---------------------------------------------------------------------------
+# The cell likelihoods (phases 27-30)
+
+
+def incucyte_setup():
+    """_incucyte_setup's experiment and values (tests/test_cellmisc.py
+    :106-178), which bench.py bench_incucyte scores: one experiment of 3
+    concentrations, 20 timepoints x 4 replicates, D = 32; (name, value)."""
+    import numpy as np
+
+    from bcm3_tpu_torch.likelihoods.cellmisc import IncucyteExperiment
+
+    tp = np.linspace(0.0, 96.0, 20)
+    e = IncucyteExperiment(
+        timepoints=tp, concentrations=np.log10([0.1, 1.0, 10.0]),
+        drug_confluence=np.full((20, 3, 4), 10.0), drug_apoptosis=np.full((20, 3, 4), 1.0),
+        neg_confluence=np.full((20, 4), 20.0), neg_apoptosis=np.full((20, 4), 0.5),
+        pos_confluence=np.full((20, 4), 5.0), pos_apoptosis=np.full((20, 4), 3.0),
+        ctb=np.array([0.9, 0.5, 0.2]), treatment_time=24.0, seeding_density=1000.0,
+        experiment_ix=0,
+    )
+    values = [
+        ("log10_cell_size", np.log10(300.0)), ("apoptotic_cell_size", 0.5),
+        ("pao_apoptotic_cell_size", 0.5), ("debris_size", 0.2), ("apoptosis_marker_size", 0.8),
+        ("pao_apoptosis_marker_size", 0.8), ("debris_apoptosis_marker_size", 0.3),
+        ("proliferation_rate", 0.03), ("apoptosis_rate", 0.1), ("apoptosis_duration", 6.0),
+        ("apoptosis_remove_rate", 0.05), ("drug_delay", 1.0), ("drug_effect_time", 6.0),
+        ("pao_delay", 1.0), ("pao_effect_time", 3.0), ("pao_apoptosis_rate", 0.2),
+        ("contact_inhibition_start", 70.0), ("contact_inhibition_max_confluence", 100.0),
+        ("contact_inhibition_apoptosis_rate", 0.0), ("cell_preadherence_size", 1.3),
+        ("cell_adherence_time", 4.0), ("starting_dead_cell_fraction", 0.02),
+        ("seeding_density_deviation_1", 0.0), ("drug_proliferation_rate_1", 0.1),
+        ("drug_proliferation_rate_2", 0.2), ("drug_proliferation_rate_3", 0.3),
+        ("drug_apoptosis_rate_1", 0.001), ("drug_apoptosis_rate_2", 0.002),
+        ("drug_apoptosis_rate_3", 0.005), ("sigma_confluence", 2.0),
+        ("sigma_apoptosis_marker", 0.5), ("sigma_ctb", 0.1),
+    ]
+    return e, values
+
+
+def incucyte_model(workdir, **options):
+    """bench_incucyte's likelihood (G = INCUCYTE_GRID, ring INCUCYTE_RING,
+    unless options say otherwise), built in memory; the prior (its XML in
+    workdir, uniform within 25% of each value, +-0.05 around a zero) and
+    the values."""
+    import numpy as np
+
+    from bcm3_tpu_torch import Prior, VariableSet
+    from bcm3_tpu_torch.likelihoods import Likelihood
+    from bcm3_tpu_torch.likelihoods.cellmisc import IncucytePopulationLikelihood
+
+    e, values = incucyte_setup()
+    path = os.path.join(workdir, "prior_incucyte.xml")
+    write_uniform_prior(path, [(n, False, v - (0.25 * abs(v) or 0.05), v + (0.25 * abs(v) or 0.05))
+                               for n, v in values])
+    varset = VariableSet.from_xml(path)
+    kw = {"grid_points": INCUCYTE_GRID, "ring_size": INCUCYTE_RING, **options}
+    model = IncucytePopulationLikelihood(varset, [e], **kw)
+    lik = Likelihood("incucyte_population", model.log_prob_batched, model=model)
+    return Prior.from_xml(path, varset), lik, np.array([v for _, v in values])
+
+
+def rows_card_vs_cpu(name, lik, xs, rtol, dtype):
+    """lik on the card in `dtype` against the CPU's float64 on the rows xs
+    (float64 numpy): equal finite sets, at least half finite, every finite
+    row within rtol. Returns the largest relative error."""
+    import numpy as np
+    import torch
+
+    rows = torch.as_tensor(xs)
+    cpu = lik.log_prob_batched(rows).numpy()
+    card = lik.log_prob_batched(rows.to(CARD, dtype)).double().cpu().numpy()
+    fin = np.isfinite(cpu)
+    mismatched = int((np.isfinite(card) != fin).sum())
+    rel = np.abs(card[fin] - cpu[fin]) / np.abs(cpu[fin])
+    log(f"{name} ({dtype} on the card, float64 on the CPU): {int(fin.sum())}/{len(xs)} finite, "
+        f"{mismatched} finite-set mismatches (limit 0), max rel err {rel.max():.3e} (limit "
+        f"{rtol}), median {np.median(rel):.3e}")
+    assert mismatched == 0 and fin.sum() >= len(xs) // 2 and rel.max() <= rtol
+    return float(rel.max())
+
+
+def event_ms(fn):
+    """Milliseconds of one fn() between two CUDA events."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def incucyte_stages(model, x):
+    """ms of one evaluation by stage (CUDA events, warm): the wells'
+    setup, the solve, the interpolation to the timepoints, the scoring,
+    and the rest of the evaluation (the observables)."""
+    from bcm3_tpu_torch.likelihoods.cellmisc import _data, interp
+
+    e = model.experiments[0]
+    problem = model.well_problem(x, e)
+    res = model._solve(*problem)
+    tp = _data(e.timepoints, x)
+    sim = model.simulate_experiment(x, e)
+    total = x.new_zeros(x.shape[0])
+    stages = {"evaluation": event_ms(lambda: model.log_prob_batched(x)),
+              "well_setup": event_ms(lambda: model.well_problem(x, e)),
+              "solve": event_ms(lambda: model._solve(*problem)),
+              "interpolation": event_ms(lambda: interp(tp, problem[2], res.ys.transpose(1, 2))),
+              "scoring": event_ms(lambda: model.score_experiment(x, e, sim, total))}
+    stages["rest"] = stages["evaluation"] - sum(
+        stages[k] for k in ("well_setup", "solve", "interpolation", "scoring"))
+    return stages
+
+
+def timed_evaluations(lik, x, reps):
+    """(ms an evaluation on the host clock, synchronized, mean of reps after
+    a warm-up; the warm-up's result)."""
+    import torch
+
+    out = lik.log_prob_batched(x)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        lik.log_prob_batched(x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / reps, out
+
+
+def phase_incucyte(workdir, smi):
+    """incucyte_population at bench_incucyte's configuration (float32):
+    evals/s at each of INCUCYTE_WIDTHS, the finite count, peak memory, the
+    device's busy share of one evaluation under the profiler and, at the
+    widest, the time by stage; the card against the CPU; the ring solve under the sync
+    debug mode "error" (no host read); each solver at G =
+    INCUCYTE_SOLVER_GRID."""
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch.likelihoods.cellmisc import SOLVERS, IncucytePopulationLikelihood
+
+    _, lik, values = incucyte_model(workdir)
+    model = lik.model
+    out = {}
+    for B in INCUCYTE_WIDTHS:
+        xs = bench_rows(values, B, jitter=INCUCYTE_JITTER)
+        x = torch.as_tensor(xs, dtype=torch.float32, device=CARD)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        wall_ms, lp = timed_evaluations(lik, x, INCUCYTE_REPS)
+        finite = int(torch.isfinite(lp).sum())
+        peak = torch.cuda.max_memory_allocated() - held
+        busy_ms, ops, prof_s = device_profile(lambda: lik.log_prob_batched(x))
+        idle = 1.0 - busy_ms / wall_ms
+        out[B] = B / wall_ms * 1e3
+        log(f"incucyte_population: {B} rows x {2 + len(model.experiments[0].concentrations)} "
+            f"wells, G = {model.grid_points}, ring {model.ring_size}, float32: {wall_ms:.3f} ms "
+            f"an evaluation (host clock, synchronized, mean of {INCUCYTE_REPS}) = "
+            f"{out[B]:.1f} evals/s; {finite}/{B} finite; peak memory {peak / 2**30:.3f} GiB "
+            f"above the {held / 2**30:.3f} GiB held before; device busy {busy_ms:.3f} ms "
+            f"({ops} device operations) under the profiler ({prof_s:.1f} s), idle share "
+            f"{idle:.4f}; on {smi}")
+        if B == max(INCUCYTE_WIDTHS):
+            # where the device, not the host's launches, sets the time
+            log(f"incucyte_population {B} rows, time by stage (CUDA events, ms an "
+                f"evaluation): " + json.dumps(incucyte_stages(model, x)))
+        assert finite == B
+        del x, lp
+    torch.cuda.empty_cache()
+
+    xs = bench_rows(values, INCUCYTE_CPU_ROWS, jitter=INCUCYTE_JITTER)
+    rows_card_vs_cpu("card vs CPU incucyte_population", lik, xs, INCUCYTE_RTOL, torch.float32)
+    rows_card_vs_cpu("card vs CPU incucyte_population", lik, xs, F64_RTOL, torch.float64)
+
+    # no host read inside a solve: the sync debug mode raises on one
+    x = torch.as_tensor(bench_rows(values, INCUCYTE_SYNC_ROWS, jitter=INCUCYTE_JITTER),
+                        dtype=torch.float32, device=CARD)
+    problem = model.well_problem(x, model.experiments[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = model._solve(*problem)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"incucyte ring solve of {INCUCYTE_SYNC_ROWS} rows ({res.ok.numel()} lanes) under "
+        f"torch.cuda.set_sync_debug_mode('error'): no host read; "
+        f"{int(res.ok.sum())} lanes ok")
+    assert bool(res.ok.all())
+    del x, problem, res
+
+    xs = bench_rows(values, INCUCYTE_SOLVER_ROWS, jitter=INCUCYTE_JITTER)
+    x = torch.as_tensor(xs, dtype=torch.float32, device=CARD)
+    n = INCUCYTE_SOLVER_CPU_ROWS
+    solvers = {}
+    for solver in SOLVERS:
+        m = IncucytePopulationLikelihood(model.varset, model.experiments,
+                                         grid_points=INCUCYTE_SOLVER_GRID, solver=solver)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lp = m.log_prob_batched(x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        card = lp.double().cpu().numpy()
+        cpu = m.log_prob_batched(torch.as_tensor(xs[:n])).numpy()
+        fin = np.isfinite(cpu) & np.isfinite(card[:n])
+        mismatched = int((np.isfinite(cpu) != np.isfinite(card[:n])).sum())
+        rel = np.abs(card[:n][fin] - cpu[fin]) / np.abs(cpu[fin])
+        finite = int(np.isfinite(card).sum())
+        solvers[solver] = dict(ms=ms, finite=finite, max_rel=float(rel.max()),
+                               mismatched=mismatched)
+        log(f"incucyte solver {solver}, G = {INCUCYTE_SOLVER_GRID}: {INCUCYTE_SOLVER_ROWS} rows "
+            f"in {ms:.1f} ms (float32, host clock, first call), {finite} finite; against the "
+            f"CPU's float64 on {n} rows: {mismatched} finite-set mismatches (limit "
+            f"{SOLVER_FLIPS[solver]}), max rel err {rel.max():.3e} (limit {INCUCYTE_RTOL}); "
+            f"on {smi}")
+        for row in np.flatnonzero(~np.isfinite(card)):
+            # the row on the CPU: the method's failure, or the card's?
+            on_cpu = [float(m.log_prob_batched(torch.as_tensor(xs[row:row + 1], dtype=dt))[0])
+                      for dt in (torch.float32, torch.float64)]
+            log(f"incucyte solver {solver}: row {row} not finite on the card (float32); on the "
+                f"CPU float32 {on_cpu[0]!r}, float64 {on_cpu[1]!r}; its apoptosis_duration "
+                f"{xs[row, m._ix['apoptosis_duration']]!r}")
+            assert not np.isfinite(on_cpu[1]), f"row {row} fails on the card alone"
+        assert rel.max() <= INCUCYTE_RTOL and mismatched <= SOLVER_FLIPS[solver]
+        assert finite >= INCUCYTE_SOLVER_ROWS - SOLVER_NONFINITE[solver]
+    log("incucyte solvers: " + json.dumps(solvers))
+    return out
+
+
+def phase_incucyte_pt(workdir, smi):
+    """SamplerPT over bench_incucyte's likelihood at 8 x 8192 chains (prior
+    uniform around bench's values), its wall from the one run; the
+    profile over INCUCYTE_PT_PROFILE_SAMPLES iterations of a second
+    sampler."""
+    prior, lik, _ = incucyte_model(workdir)
+    res = pt_slice("incucyte_pt", prior, lik, ENSEMBLES["one"], INCUCYTE_PT_SAMPLES,
+                   profile_samples=INCUCYTE_PT_PROFILE_SAMPLES, warm=False)
+    log(f"incucyte_pt on {smi}")
+    return res["evals_per_second"]
+
+
+def mitosis_model(workdir):
+    """MITOSIS_CELLS observed boxcars over MITOSIS_TIMEPOINTS from the
+    model's own Sobol construction at MITOSIS_TRUTH; the prior (uniform in
+    log10 around the truth) and the truth's log10."""
+    import numpy as np
+
+    from bcm3_tpu_torch import Prior, VariableSet
+    from bcm3_tpu_torch.likelihoods import Likelihood
+    from bcm3_tpu_torch.likelihoods.cellmisc import MitosisTimeEstimationLikelihood
+
+    names = ("mitosis_times_stdev", "entry_time_stdev", "trajectory_noise_stdev")
+    truth = np.log10(MITOSIS_TRUTH)
+    path = os.path.join(workdir, "prior_mitosis.xml")
+    write_uniform_prior(path, [(n, False, v - 0.5, v + 0.5) for n, v in zip(names, truth)])
+    varset = VariableSet.from_xml(path)
+    tp = np.linspace(0.0, 10.0, MITOSIS_TIMEPOINTS)
+    model = MitosisTimeEstimationLikelihood(varset, tp,
+                                            np.zeros((MITOSIS_TIMEPOINTS, MITOSIS_CELLS)))
+    start = model.sobol_values[:, 1:2] * MITOSIS_TRUTH[1]
+    end = start + model.sobol_values[:, :1] * MITOSIS_TRUTH[0]
+    model.observed = ((tp[None, :] >= start) & (tp[None, :] < end)).astype(float).T
+    lik = Likelihood("mitosis_time_estimation", model.log_prob_batched, model=model)
+    return Prior.from_xml(path, varset), lik, truth
+
+
+def phase_mitosis(workdir, smi):
+    """mitosis_time_estimation: MITOSIS_ROWS rows, evals/s split into the
+    cost on the card, its copy to the host and the native matching; the
+    native matching against scipy; the card against the CPU; one PT run."""
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch import native
+    from bcm3_tpu_torch.cellpop.data_likelihood import host_costs
+    from bcm3_tpu_torch.sampler import SamplerPT
+
+    t = time.perf_counter()
+    lib = native.build_lap_library()
+    native.get_lap_library()
+    log(f"native matching: {lib.name} built or found and loaded in "
+        f"{time.perf_counter() - t:.2f} s; {native.match_threads()} threads")
+    prior, lik, truth = mitosis_model(workdir)
+    model = lik.model
+    rng = np.random.default_rng(0)
+    xs = truth + MITOSIS_JITTER * rng.normal(size=(MITOSIS_ROWS, 3))
+    x = torch.as_tensor(xs, dtype=torch.float32, device=CARD)
+    wall_ms, lp = timed_evaluations(lik, x, INCUCYTE_REPS)
+    finite = int(torch.isfinite(lp).sum())
+    cost_ms = cuda_ms(lambda: model.cost(x), INCUCYTE_REPS)
+    cost = model.cost(x)
+    host_costs(cost)  # the pinned staging buffer, allocated once
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    host = host_costs(cost)
+    copy_ms = (time.perf_counter() - t) * 1e3
+    ones = np.ones(MITOSIS_CELLS, dtype=bool)
+    t = time.perf_counter()
+    totals = native.lap_match_logp_batch(host, ones, ones)
+    match_ms = (time.perf_counter() - t) * 1e3
+    log(f"mitosis_time_estimation: {MITOSIS_ROWS} rows x {MITOSIS_CELLS} cells x "
+        f"{MITOSIS_TIMEPOINTS} timepoints, float32: {wall_ms:.3f} ms an evaluation (host "
+        f"clock, mean of {INCUCYTE_REPS}) = {MITOSIS_ROWS / wall_ms * 1e3:.1f} evals/s; "
+        f"{finite}/{MITOSIS_ROWS} finite; the cost on the card {cost_ms:.3f} ms (CUDA "
+        f"events), its copy to the host in float64 ({host.nbytes / 2**20:.0f} MiB, pinned) "
+        f"{copy_ms:.3f} ms, the matching {match_ms:.3f} ms = "
+        f"{match_ms * 1e3 / MITOSIS_ROWS:.3f} us a row (host clock); on {smi}")
+    assert finite == MITOSIS_ROWS
+
+    n = MITOSIS_SCIPY_ROWS
+    t = time.perf_counter()
+    plain = native.lap_match_logp_batch_plain(host[:n], ones, ones)
+    scipy_ms = (time.perf_counter() - t) * 1e3
+    rel = np.abs(totals[:n] - plain) / np.abs(plain)
+    log(f"native matching vs scipy on {n} rows: max rel err {rel.max():.3e} (limit "
+        f"{MATCH_RTOL}); scipy {scipy_ms * 1e3 / n:.3f} us a row, native "
+        f"{match_ms * 1e3 / MITOSIS_ROWS:.3f}")
+    assert np.isfinite(plain).all() and rel.max() <= MATCH_RTOL
+    del x, lp, cost, host
+
+    xs_cpu = xs[:MITOSIS_CPU_ROWS]
+    rows_card_vs_cpu("card vs CPU mitosis_time_estimation", lik, xs_cpu, MITOSIS_RTOL,
+                     torch.float32)
+    rows_card_vs_cpu("card vs CPU mitosis_time_estimation", lik, xs_cpu, F64_RTOL,
+                     torch.float64)
+
+    sampler = SamplerPT(prior, lik, pt_config(ENSEMBLES["one"], MITOSIS_PT_SAMPLES))
+    res = sampler.run()
+    lpost = res["log_prior"] + res["log_likelihood"]
+    mut, exc = sampler.acceptance_rates(sampler.state)
+    iterations = MITOSIS_PT_SAMPLES * USE_EVERY_NTH
+    log(f"mitosis_pt: {NUM_CHAINS} x {ENSEMBLES['one']} chains, {MITOSIS_PT_SAMPLES} samples "
+        f"thinned by {USE_EVERY_NTH}: {res['evaluations']} evaluations in "
+        f"{res['elapsed_seconds']:.3f} s = {res['evals_per_second']:.1f} evals/s, wall "
+        f"{res['sampling_seconds'] * 1e3 / iterations:.3f} ms an iteration; T=1 mutate "
+        f"acceptance {mut[-1]:.4f}, exchange {np.round(exc, 4).tolist()}; on {smi}")
+    assert np.isfinite(lpost).all() and 0.0 < mut[-1] < 1.0
+    return MITOSIS_ROWS / wall_ms * 1e3
+
+
+def ccm_track(n=220, seed=0):
+    """tests/test_cellmisc.py:41-79's track: the model's own piecewise form
+    at CCM_TRUTH with t(4) noise."""
+    import numpy as np
+
+    s_entry, s_dur, plat_dur, base, s_inc, plat_inc, mit_frac, mit_dec = CCM_TRUTH[:8]
+    i = np.arange(n, dtype=float)
+    plateau_t, mitosis_t = s_entry + s_dur, s_entry + s_dur + plat_dur
+    x = np.full_like(i, base)
+    sel = (i > s_entry) & (i <= plateau_t)
+    x[sel] = base + s_inc * (i[sel] - s_entry)
+    sel = (i > plateau_t) & (i <= mitosis_t)
+    x[sel] = base + s_dur * s_inc + (i[sel] - plateau_t) * plat_inc
+    sel = i > mitosis_t
+    x[sel] = base + (s_dur * s_inc + plat_dur * plat_inc) * mit_frac - mit_dec * (i[sel] - mitosis_t)
+    rng = np.random.default_rng(seed)
+    return x + rng.standard_t(4, size=n) * (1.0 + 0.02 * np.maximum(x, 0))
+
+
+def phase_cell_cycle_marker(smi):
+    """cell_cycle_marker over the 220-point track at CCM_ROWS rows
+    (float32): evals/s, the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch import VariableSet
+    from bcm3_tpu_torch.likelihoods.cellmisc import CellCycleMarkerLikelihood
+
+    vs = VariableSet()
+    for k in range(10):
+        vs.add_variable(f"v{k}")
+    model = CellCycleMarkerLikelihood(vs, ccm_track())
+    rng = np.random.default_rng(0)
+    xs = np.array(CCM_TRUTH) * (1.0 + 0.1 * rng.normal(size=(CCM_ROWS, 10)))
+    x = torch.as_tensor(xs, dtype=torch.float32, device=CARD)
+    ms = cuda_ms(lambda: model.log_prob_batched(x), INCUCYTE_REPS)
+    finite = int(torch.isfinite(model.log_prob_batched(x)).sum())
+    log(f"cell_cycle_marker: {CCM_ROWS} rows x {len(model.data)} points, float32: {ms:.4f} ms "
+        f"an evaluation (CUDA events) = {CCM_ROWS / ms * 1e3:.1f} evals/s, {finite} finite; "
+        f"on {smi}")
+    assert finite == CCM_ROWS
+    rows_card_vs_cpu("card vs CPU cell_cycle_marker", model, xs[:CCM_CPU_ROWS], CCM_RTOL,
+                     torch.float32)
+    return CCM_ROWS / ms * 1e3
+
+
 def main(workdir):
     phase_times = {}
 
@@ -2671,6 +3181,14 @@ def main(workdir):
     main_path("pk_single_one_transit", ("transit_dp5",), phase_pk_single_one_transit, single,
               smi)
     evals["ode_template"] = main_path("ode_dll", (), phase_ode_dll, workdir, smi)
+    # the cell likelihoods: no kernel serves them (none in the JAX package
+    # either: XLA, and the matching on the host)
+    incucyte = main_path("incucyte", (), phase_incucyte, workdir, smi)
+    evals.update({f"incucyte_{B}": v for B, v in incucyte.items()})
+    evals["incucyte_pt"] = main_path("incucyte_pt", (), phase_incucyte_pt, workdir, smi)
+    evals["mitosis_time_estimation"] = main_path("mitosis", (), phase_mitosis, workdir, smi)
+    evals["cell_cycle_marker"] = main_path("cell_cycle_marker", (), phase_cell_cycle_marker,
+                                           smi)
     launches = {k: sum(p[k] for p in paths.values()) for k in counters}
     log(f"main-path launches: {launches}; per slice {json.dumps(paths)}")
 

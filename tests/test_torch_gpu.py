@@ -17,7 +17,10 @@ the card, and the CLI's predict core on the card agrees with the CPU's.
 The analytic targets and the PopPK models two, one_biphasic_uptake and
 two_transit evaluate on the card as on the CPU, and so do the general-PK
 likelihood (pharmaco_population), the single-patient PK likelihood
-(through B1 and B2 at P = 1) and the ODE template.
+(through B1 and B2 at P = 1), the ODE template and the cell likelihoods
+(incucyte_population with each of its four DDE solvers, whose solve makes
+no host read; mitosis_time_estimation with the native matching against
+scipy; cell_cycle_marker).
 
 Each kernel is held to its plain PyTorch version on the same inputs:
 - B1: rtol 1e-5 in float32, 1e-12 in float64;
@@ -753,3 +756,86 @@ def test_ode_template_on_the_card_matches_cpu(cuda):
     card = lik.log_prob_batched(xs.to(cuda)).cpu()
     assert torch.isfinite(cpu).all()
     torch.testing.assert_close(card, cpu, rtol=1e-8, atol=0.0)
+
+
+def _chip_smoke():
+    """chip_smoke.py, whose models are made in memory (the card's machine
+    may lack h5py)."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _card_and_cpu(lik, xs, cuda, rtol64, rtol32):
+    """lik on the card against the CPU: float64 within rtol64, float32
+    within rtol32, equal finite sets."""
+    cpu = lik.log_prob_batched(xs)
+    card = lik.log_prob_batched(xs.to(cuda))
+    assert card.device.type == cuda.type and card.dtype == torch.float64
+    torch.testing.assert_close(card.cpu(), cpu, rtol=rtol64, atol=0.0, equal_nan=True)
+    card32 = lik.log_prob_batched(xs.to(cuda, torch.float32)).cpu().double()
+    assert torch.equal(torch.isfinite(card32), torch.isfinite(cpu))
+    fin = torch.isfinite(cpu)
+    torch.testing.assert_close(card32[fin], cpu[fin], rtol=rtol32, atol=0.0)
+    return cpu
+
+
+@pytest.mark.parametrize("solver", ["ring", "fixed", "budget", "adaptive"])
+def test_incucyte_on_the_card_matches_cpu(cuda, tmp_path, solver):
+    """incucyte_population, bench_incucyte's experiment at G = 256 with
+    each solver, 64 rows of its values with jitter 0.002 and a NaN row:
+    float64 at rtol 1e-10 (1e-8 for budget and adaptive), float32 within
+    chip_smoke.INCUCYTE_RTOL; the solve makes no host read (sync debug
+    mode "error")."""
+    cs = _chip_smoke()
+    _, lik, values = cs.incucyte_model(str(tmp_path), grid_points=256, solver=solver)
+    xs = torch.as_tensor(cs.bench_rows(values, 64, jitter=cs.INCUCYTE_JITTER))
+    xs[7] = float("nan")
+    cpu = _card_and_cpu(lik, xs, cuda, cs.SOLVER_RTOL[solver], cs.INCUCYTE_RTOL)
+    assert torch.isfinite(cpu).sum() == 63 and torch.isneginf(cpu[7])
+    model = lik.model
+    problem = model.well_problem(xs[:8].to(cuda), model.experiments[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = model._solve(*problem)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert res.ok.cpu().tolist() == [True] * 35 + [False] * 5
+
+
+def test_mitosis_on_the_card_matches_cpu(cuda, tmp_path):
+    """mitosis_time_estimation (32 cells x 30 timepoints) on 256 rows:
+    float64 at rtol 1e-10, float32 within chip_smoke.MITOSIS_RTOL; the
+    native matching of the card's costs equals scipy's to 1e-12."""
+    from bcm3_tpu_torch import native
+
+    cs = _chip_smoke()
+    _, lik, truth = cs.mitosis_model(str(tmp_path))
+    xs = torch.as_tensor(truth + 0.1 * np.random.default_rng(0).normal(size=(256, 3)))
+    _card_and_cpu(lik, xs, cuda, 1e-10, cs.MITOSIS_RTOL)
+    cost = lik.model.cost(xs.to(cuda, torch.float32)).double().cpu().numpy()
+    ones = np.ones(cost.shape[1], dtype=bool)
+    np.testing.assert_allclose(native.lap_match_logp_batch(cost, ones, ones),
+                               native.lap_match_logp_batch_plain(cost, ones, ones), rtol=1e-12)
+
+
+def test_cell_cycle_marker_on_the_card_matches_cpu(cuda):
+    """cell_cycle_marker over the 220-point track on 256 rows: float64 at
+    rtol 1e-10, float32 within chip_smoke.CCM_RTOL."""
+    from bcm3_tpu_torch import VariableSet
+    from bcm3_tpu_torch.likelihoods.cellmisc import CellCycleMarkerLikelihood
+
+    cs = _chip_smoke()
+    vs = VariableSet()
+    for k in range(10):
+        vs.add_variable(f"v{k}")
+    model = CellCycleMarkerLikelihood(vs, cs.ccm_track())
+    xs = np.array(cs.CCM_TRUTH) * (1.0 + 0.1 * np.random.default_rng(0).normal(size=(256, 10)))
+    _card_and_cpu(model, torch.as_tensor(xs), cuda, 1e-10, cs.CCM_RTOL)

@@ -51,11 +51,18 @@ def test_port_imports_without(forbidden):
 
 
 def test_import_builds_nothing():
-    """Importing the kernel wrappers neither compiles nor loads the library."""
+    """Importing the kernel wrappers, the native matching and its users
+    neither compiles nor loads a library: no compiler process is started."""
     proc = _run(
+        "import subprocess\n"
+        "def refuse(*a, **k): raise AssertionError('a process was started at import')\n"
+        "subprocess.run = subprocess.Popen = refuse\n"
         "import bcm3_tpu_torch.ops.poppk_kernels, bcm3_tpu_torch.ops.transit_kernels\n"
+        "import bcm3_tpu_torch.likelihoods.cellmisc, bcm3_tpu_torch.cellpop.data_likelihood\n"
+        "from bcm3_tpu_torch import native\n"
         "from bcm3_tpu_torch.ops import build\n"
         "assert build._loaded is None and build.last_build_seconds is None\n"
+        "assert native._lap_lib is None\n"
     )
     assert proc.returncode == 0, proc.stderr
 
