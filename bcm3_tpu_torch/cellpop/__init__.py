@@ -1,6 +1,6 @@
-"""Cell-population likelihoods (counterpart of bcm3_tpu/cellpop).
-
-Ported so far: the host Hungarian matching of `data_likelihood`, which
-`mitosis_time_estimation` uses; the `cell_population` type itself is
-ROADMAP A11.
+"""Cell-population likelihoods (counterpart of bcm3_tpu/cellpop): the
+`cell_population` type (`likelihood`, `experiment`) over the population
+simulator (`simulate`), its variability and treatments, and the data
+likelihoods with the host Hungarian matching (`data_likelihood`), which
+`mitosis_time_estimation` uses too.
 """

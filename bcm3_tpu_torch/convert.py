@@ -11,7 +11,9 @@ assign clusters with the same fit. The port keeps no PRNG key in its state (its 
 checkpoints (io/checkpoint.py) rebuild their objects with the same
 functions. The Incucyte likelihood's experiments carry across the same
 way (`incucyte_experiment_from_arrays`), so that both packages score the
-same data.
+same data, and so does a cell-population simulator's configuration
+(`population_config_from_arrays`), so that both simulate the same
+population.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from bcm3_tpu_torch.sampler.spectral import ARRAY_FIELDS as ASSIGNER_FIELDS
 from bcm3_tpu_torch.sampler.spectral import ClusterAssigner
 
 if TYPE_CHECKING:
+    from bcm3_tpu_torch.cellpop.simulate import PopulationConfig
     from bcm3_tpu_torch.likelihoods.cellmisc import IncucyteExperiment
 
 STATE_FIELDS = (
@@ -119,3 +122,26 @@ def incucyte_experiment_from_arrays(arrays: Mapping[str, object]) -> IncucyteExp
         else np.array(arrays[f.name], dtype=np.float64)
         for f in dataclasses.fields(IncucyteExperiment)
     })
+
+
+def population_config_from_arrays(fields: Mapping[str, object]) -> PopulationConfig:
+    """The port's PopulationConfig from a JAX package PopulationConfig's
+    fields (e.g. ``{f.name: getattr(cfg, f) for f in dataclasses.fields(cfg)}``):
+    numbers and strings as they are, the event species and division
+    resets as plain ints and floats, and its SparseStageSolver rebuilt
+    from the solver's `jac_pattern` (an (n, n) bool array). The cell
+    simulator is imported here, as above."""
+    from bcm3_tpu_torch.cellpop.simulate import PopulationConfig
+    from bcm3_tpu_torch.ode.sparse_lu import SparseStageSolver
+
+    kw = {}
+    for f in dataclasses.fields(PopulationConfig):
+        v = fields[f.name]
+        if f.name == "event_species":
+            v = {str(k): int(i) for k, i in dict(v).items()}
+        elif f.name == "division_reset_idx":
+            v = tuple((int(i), float(x)) for i, x in v)
+        elif f.name == "sparse" and v is not None:
+            v = SparseStageSolver(np.asarray(getattr(v, "jac_pattern", v), dtype=bool))
+        kw[f.name] = v
+    return PopulationConfig(**kw)

@@ -8,10 +8,10 @@ the analytic targets (``banana``, ``circular``, ``multimodal_gaussians``,
 ``truncated_t``, ``dummy``), ``pop_pk_trajectory``, the pharmacometric
 types (``pharmaco_single``, ``pharmaco_population``,
 ``pharmacokinetic_trajectory``), the generic ``ODE`` and ``dll``, and
-the cell likelihoods ``cell_cycle_marker``, ``mitosis_time_estimation``
-and ``incucyte_population``; the JAX package's other types
-(``cell_population``, ``fISA``) raise NotImplementedError naming their
-ROADMAP item (`_UNPORTED`). `fixed_parameter_likelihood` builds the
+the cell likelihoods ``cell_cycle_marker``, ``mitosis_time_estimation``,
+``incucyte_population`` and ``cell_population``; the JAX package's other
+type (``fISA``) raises NotImplementedError naming its ROADMAP item
+(`_UNPORTED`). `fixed_parameter_likelihood` builds the
 likelihood of `--bcmopt`.
 """
 
@@ -178,6 +178,13 @@ def _incucyte(varset: VariableSet, attrs) -> Likelihood:
     return Likelihood("incucyte_population", model.log_prob_batched, attrs=attrs, model=model)
 
 
+def _cell_population(varset: VariableSet, attrs) -> Likelihood:
+    from bcm3_tpu_torch.cellpop.likelihood import create_cellpop_likelihood
+
+    model = create_cellpop_likelihood(varset, attrs)
+    return Likelihood("cell_population", model.log_prob_batched, attrs=attrs, model=model)
+
+
 _REGISTRY: Dict[str, Callable[..., Likelihood]] = {
     "banana": _banana,
     "circular": _circular,
@@ -193,11 +200,11 @@ _REGISTRY: Dict[str, Callable[..., Likelihood]] = {
     "cell_cycle_marker": _cell_cycle_marker,
     "mitosis_time_estimation": _mitosis,
     "incucyte_population": _incucyte,
+    "cell_population": _cell_population,
 }
 
 # the JAX package's other types and the ROADMAP item that ports each
 _UNPORTED = {
-    "cell_population": "A11",
     "fISA": "A12",
 }
 
@@ -226,7 +233,8 @@ def create_likelihood(filename_or_type: str, varset: VariableSet, **kwargs) -> L
     """Create a likelihood from a likelihood.xml file or a bare type name,
     whose attributes are then the keyword arguments (numbers as strings,
     as XML gives them; names starting with "_" as they are, such as the
-    ODE type's `_derivative`) (reference:
+    ODE type's `_derivative`); with a file, keyword arguments whose names
+    start with "_" are passed along beside its attributes (reference:
     src/likelihoods/LikelihoodFactory.cpp:31-101, src/bcminf/main.cpp:43-50)."""
     if filename_or_type.endswith(".xml"):
         root = ET.parse(filename_or_type).getroot()
@@ -236,6 +244,9 @@ def create_likelihood(filename_or_type: str, varset: VariableSet, **kwargs) -> L
         attrs: Dict[str, Any] = dict(root.attrib)
         attrs["_xml_path"] = filename_or_type
         attrs["_xml_root"] = root
+        # options that are no XML attribute, such as cell_population's
+        # `_data` (its data groups in memory)
+        attrs.update({k: v for k, v in kwargs.items() if k.startswith("_")})
     else:
         ltype = filename_or_type
         attrs = {

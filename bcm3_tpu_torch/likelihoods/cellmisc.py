@@ -213,12 +213,18 @@ def grid_like(stop: float, num: int, like: torch.Tensor) -> torch.Tensor:
 
 
 def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
-    """`jnp.interp(x, xp, fp)` over fp's last axis (fp (..., len(xp)) ->
-    (..., len(x))), in its arithmetic: the interval from a right-sided
-    search, a zero-width interval's left value, and fp's end values
-    outside xp."""
-    i = torch.searchsorted(xp, x, right=True).clamp(1, xp.shape[0] - 1)
-    lo, hi = fp[..., i - 1], fp[..., i]
+    """`jnp.interp(x, xp, fp)` over fp's last axis, in its arithmetic: the
+    interval from a right-sided search, a zero-width interval's left value,
+    and fp's end values outside xp. x (K,) reads every row of fp (...,
+    len(xp)) at the same points, giving (..., K); x (..., K) with more
+    axes reads each row at its own points (leading axes broadcast)."""
+    i = torch.searchsorted(xp, x.contiguous(), right=True).clamp(1, xp.shape[0] - 1)
+    if x.dim() <= 1:
+        lo, hi = fp[..., i - 1], fp[..., i]
+    else:
+        rows = torch.broadcast_shapes(fp.shape[:-1], x.shape[:-1])
+        fr, ir = fp.expand(*rows, fp.shape[-1]), i.expand(*rows, i.shape[-1])
+        lo, hi = fr.gather(-1, ir - 1), fr.gather(-1, ir)
     dx = xp[i] - xp[i - 1]
     delta = x - xp[i - 1]
     eps = float(np.spacing(np.finfo(str(xp.dtype).removeprefix("torch.")).eps))

@@ -165,12 +165,38 @@ Phases, each printing its lines before the last:
    against the CPU on 256; one PT run of 8 x 8,192 chains, 4 samples
    thinned by 5;
 30. `cell_cycle_marker`: the 220-point track at 65,536 rows: evals/s, the
-   card against the CPU.
+   card against the CPU;
+31. `cellpop`: cell_population at bench.py bench_cellpop's configuration
+   (tools/bench_cellpop.py's 5-species dividing cell with a stiff kinase
+   module and Sobol variability on k_div, built in memory; 512 rows x 128
+   cells, 16 initial; adaptive RODAS3 at rtol = atol = 1e-6 through the
+   sparse stage solver; population-average data; float32): a first
+   evaluation under the profiler (device operations, busy time, host reads
+   under the sync debug mode "warn", RODAS3 steps a lane by round, time by
+   stage from CUDA events), then 3 timed evaluations (evals/s, idle share,
+   peak memory);
+32. `cellpop21`: bench_cellpop21's 21-species cascade (20 ODE species) the
+   same way with 1 timed evaluation, and one step's stage solver at 65,536
+   lanes, sparse against `lu_factor_ex` + `lu_solve`;
+33. `cellpop_matched`: bench_cellpop_matched (16 observed cells scored by
+   Hungarian-matched time courses), 1 timed evaluation, the evaluation
+   split into the simulation and cost on the card, the cost's pinned copy
+   and the native matching;
+34. `cellpop_pt`: SamplerPT over the registry's cell_population at
+   bench_cellpop's configuration, 8 x 64 chains, 3 iterations, and one more
+   under the profiler;
+35. `cellpop_card_vs_cpu` (after the main path): each of the three on 64
+   rows, the card's float64 against the CPU's (computed meanwhile in a
+   process of its own), lane by lane the step counts and row by row the
+   log-density (1e-10 where every lane took the CPU's step count, the
+   solver's rtol otherwise), float32 against the CPU's float64 within ten
+   times the CPU's own float32 error; the budget RODAS3 form on the first
+   round's 8,192 lanes under the sync debug mode "error" (no host read).
 
 The kernels' launch counters are set to 0 just before each slice of the
-main path (phases 4-7, 9, 10, 13-20 and 22-30) and read just after it, so
+main path (phases 4-7, 9, 10, 13-20 and 22-34) and read just after it, so
 the counts show that each slice itself went through the kernels
-(`cli_one` through B1 and B2; phases 13-15, 20, 22, 23 and 26-30 run paths
+(`cli_one` through B1 and B2; phases 13-15, 20, 22, 23 and 26-34 run paths
 that no kernel serves; phases 16, 17 and 19 through B1 and B1T, phases 18
 and 24 through B1, phase 25 through B2).
 Any failed check raises, and the script exits non-zero without printing a
@@ -3092,6 +3118,662 @@ def phase_cell_cycle_marker(smi):
     return CCM_ROWS / ms * 1e3
 
 
+# ---------------------------------------------------------------------------
+# The cell-population likelihood (phases 31-34)
+
+SBML_NS = "http://www.sbml.org/sbml/level2/version4"
+MATHML = "http://www.w3.org/1998/Math/MathML"
+
+# tools/bench_cellpop.py:29-90's model (that module and
+# tools/bench_cellpop_scaling.py import the JAX package and h5py)
+CELL_MODEL = f"""<?xml version="1.0"?>
+<sbml xmlns="{SBML_NS}" level="2" version="4">
+<model id="cell">
+<listOfSpecies>
+  <species id="mass" name="mass" initialAmount="1.0"/>
+  <species id="cytokinesis" name="cytokinesis" initialAmount="0.0"/>
+  <species id="Ka" name="Ka" initialAmount="0.0"/>
+  <species id="Xp" name="Xp" initialAmount="0.0"/>
+  <species id="env" name="env" initialAmount="1.0"/>
+</listOfSpecies>
+<listOfParameters>
+  <parameter id="Ktot" value="1.0"/>
+  <parameter id="Xtot" value="1.0"/>
+  <parameter id="k_act" value="2000.0"/>
+  <parameter id="k_deact" value="1000.0"/>
+  <parameter id="k_phos" value="3000.0"/>
+  <parameter id="k_dephos" value="1500.0"/>
+</listOfParameters>
+<listOfReactions>
+  <reaction id="growth">
+    <listOfProducts><speciesReference species="mass"/></listOfProducts>
+    <kineticLaw><math xmlns="{MATHML}">
+      <apply><times/><ci>k_growth</ci><ci>mass</ci>
+        <apply><minus/><cn>1</cn><ci>Xp</ci></apply></apply>
+    </math></kineticLaw>
+  </reaction>
+  <reaction id="division_clock">
+    <listOfProducts><speciesReference species="cytokinesis"/></listOfProducts>
+    <kineticLaw><math xmlns="{MATHML}"><ci>k_div</ci></math></kineticLaw>
+  </reaction>
+  <reaction id="k_activation">
+    <listOfProducts><speciesReference species="Ka"/></listOfProducts>
+    <kineticLaw><math xmlns="{MATHML}">
+      <apply><times/><ci>k_act</ci><ci>mass</ci>
+        <apply><minus/><ci>Ktot</ci><ci>Ka</ci></apply></apply>
+    </math></kineticLaw>
+  </reaction>
+  <reaction id="k_deactivation">
+    <listOfReactants><speciesReference species="Ka"/></listOfReactants>
+    <kineticLaw><math xmlns="{MATHML}">
+      <apply><times/><ci>k_deact</ci><ci>Ka</ci></apply>
+    </math></kineticLaw>
+  </reaction>
+  <reaction id="x_phos">
+    <listOfProducts><speciesReference species="Xp"/></listOfProducts>
+    <kineticLaw><math xmlns="{MATHML}">
+      <apply><times/><ci>k_phos</ci><ci>Ka</ci>
+        <apply><minus/><ci>Xtot</ci><ci>Xp</ci></apply></apply>
+    </math></kineticLaw>
+  </reaction>
+  <reaction id="x_dephos">
+    <listOfReactants><speciesReference species="Xp"/></listOfReactants>
+    <kineticLaw><math xmlns="{MATHML}">
+      <apply><times/><ci>k_dephos</ci><ci>Xp</ci></apply>
+    </math></kineticLaw>
+  </reaction>
+</listOfReactions>
+</model>
+</sbml>
+"""
+
+
+def _reaction(rid, products, reactants, math):
+    prods = "".join(f'<speciesReference species="{s}"/>' for s in products)
+    reacts = "".join(f'<speciesReference species="{s}"/>' for s in reactants)
+    plist = f"<listOfProducts>{prods}</listOfProducts>" if prods else ""
+    rlist = f"<listOfReactants>{reacts}</listOfReactants>" if reacts else ""
+    return (
+        f'<reaction id="{rid}">{rlist}{plist}'
+        f'<kineticLaw><math xmlns="{MATHML}">{math}</math></kineticLaw>'
+        "</reaction>"
+    )
+
+
+def cascade_model(extra_modules):
+    """tools/bench_cellpop_scaling.py:59's dividing-cell model with a stiff
+    kinase cascade of `extra_modules` (Ka_i, Xp_i) modules: 5 + 2 m species."""
+    species = [
+        '<species id="mass" name="mass" initialAmount="1.0"/>',
+        '<species id="cytokinesis" name="cytokinesis" initialAmount="0.0"/>',
+        '<species id="Ka" name="Ka" initialAmount="0.0"/>',
+        '<species id="Xp" name="Xp" initialAmount="0.0"/>',
+        '<species id="env" name="env" initialAmount="1.0"/>',
+    ]
+    reactions = [
+        _reaction("growth", ["mass"], [],
+                  "<apply><times/><ci>k_growth</ci><ci>mass</ci>"
+                  "<apply><minus/><cn>1</cn><ci>Xp</ci></apply></apply>"),
+        _reaction("division_clock", ["cytokinesis"], [], "<ci>k_div</ci>"),
+        _reaction("k_activation", ["Ka"], [],
+                  "<apply><times/><ci>k_act</ci><ci>mass</ci>"
+                  "<apply><minus/><ci>Ktot</ci><ci>Ka</ci></apply></apply>"),
+        _reaction("k_deactivation", [], ["Ka"],
+                  "<apply><times/><ci>k_deact</ci><ci>Ka</ci></apply>"),
+        _reaction("x_phos", ["Xp"], [],
+                  "<apply><times/><ci>k_phos</ci><ci>Ka</ci>"
+                  "<apply><minus/><ci>Xtot</ci><ci>Xp</ci></apply></apply>"),
+        _reaction("x_dephos", [], ["Xp"],
+                  "<apply><times/><ci>k_dephos</ci><ci>Xp</ci></apply>"),
+    ]
+    for i in range(extra_modules):
+        ka, xp = f"Ka{i}", f"Xp{i}"
+        driver = "mass" if i == 0 else f"Xp{i - 1}"
+        species.append(f'<species id="{ka}" initialAmount="0.0"/>')
+        species.append(f'<species id="{xp}" initialAmount="0.0"/>')
+        reactions.append(_reaction(
+            f"k_act_{i}", [ka], [],
+            f"<apply><times/><ci>k_act</ci><ci>{driver}</ci>"
+            f"<apply><minus/><ci>Ktot</ci><ci>{ka}</ci></apply></apply>"))
+        reactions.append(_reaction(
+            f"k_deact_{i}", [], [ka], f"<apply><times/><ci>k_deact</ci><ci>{ka}</ci></apply>"))
+        reactions.append(_reaction(
+            f"x_phos_{i}", [xp], [],
+            f"<apply><times/><ci>k_phos</ci><ci>{ka}</ci>"
+            f"<apply><minus/><ci>Xtot</ci><ci>{xp}</ci></apply></apply>"))
+        reactions.append(_reaction(
+            f"x_dephos_{i}", [], [xp], f"<apply><times/><ci>k_dephos</ci><ci>{xp}</ci></apply>"))
+    params = (
+        '<parameter id="Ktot" value="1.0"/>'
+        '<parameter id="Xtot" value="1.0"/>'
+        '<parameter id="k_act" value="2000.0"/>'
+        '<parameter id="k_deact" value="1000.0"/>'
+        '<parameter id="k_phos" value="3000.0"/>'
+        '<parameter id="k_dephos" value="1500.0"/>'
+    )
+    return (
+        f'<?xml version="1.0"?>\n<sbml xmlns="{SBML_NS}" level="2"'
+        ' version="4">\n<model id="cell">\n'
+        f"<listOfSpecies>{''.join(species)}</listOfSpecies>\n"
+        f"<listOfParameters>{params}</listOfParameters>\n"
+        f"<listOfReactions>{''.join(reactions)}</listOfReactions>\n"
+        "</model>\n</sbml>\n"
+    )
+
+
+CELLPOP_NAMES = ("k_growth", "k_div", "cv_kdiv", "sd")
+CELLPOP_BASE = (0.1, 0.25, 0.15, 0.05)  # bench.py:776
+# bench.py's cellpop configurations: (extra cascade modules, scoring)
+CELLPOP_CONFIGS = {"cellpop": (None, "average"), "cellpop21": (8, "average"),
+                   "cellpop_matched": (0, "matched")}
+
+
+def cellpop_files(workdir, config, cells, num_cells):
+    """Write a bench cellpop configuration's cell.xml and likelihood.xml
+    (tools/bench_cellpop.py and tools/bench_cellpop_scaling.py
+    build_likelihood, adaptive RODAS3 at rtol = atol = 1e-6) into workdir;
+    return the likelihood.xml's path and the data group of experiment
+    "exp1" as a mapping of numpy arrays (the tools write it to data.nc)."""
+    import numpy as np
+
+    modules, scoring = CELLPOP_CONFIGS[config]
+    with open(os.path.join(workdir, "cell.xml"), "w") as f:
+        f.write(CELL_MODEL if modules is None else cascade_model(modules))
+    times = np.linspace(0.5, 10.0, 12)
+    k_growth = 0.1
+    if scoring == "matched":
+        # per-cell observed time courses, one a cell, with spread
+        rng = np.random.default_rng(3)
+        obs = np.exp(k_growth * 0.6 * times)[None, :] * rng.lognormal(0.0, 0.15,
+                                                                       size=(num_cells, 1))
+        data = {"time": times, "cell_mass": obs}
+        block = ('  <data type="time_course" data_name="cell_mass"\n'
+                 '    species_name="mass" error_model="normal" stdev="sd"/>\n')
+    else:
+        data = {"time": times, "avg_mass": np.exp(k_growth * 0.6 * times)[None, :]}
+        block = ('  <data type="time_course_population_average" data_name="avg_mass"\n'
+                 '    species_name="mass" error_model="normal" stdev="sd"/>\n')
+    path = os.path.join(workdir, "likelihood.xml")
+    with open(path, "w") as f:
+        f.write(
+            '<bcm_likelihood type="cell_population">\n'
+            '<experiment name="exp1" model_file="cell.xml" data_file="data.nc"\n'
+            f'  num_cells="{num_cells}" max_cells="{cells}" divide_cells="true"'
+            ' entry_time="0"\n'
+            '  solver_type="CVODE" solver_relative_tolerance="1e-6"\n'
+            '  solver_absolute_tolerance="1e-6" trailing_simulation_time="0.5">\n'
+            '  <cell_variability distribution="diagonal_gaussian">\n'
+            '    <variable model_parameter="k_div" apply="multiplicative_log"'
+            ' scale="cv_kdiv"/>\n'
+            "  </cell_variability>\n"
+            + block
+            + "</experiment>\n"
+            "</bcm_likelihood>\n"
+        )
+    return path, data
+
+
+def cellpop_model(workdir, config, cells=128, num_cells=16, sparse_stiff=True):
+    """A bench cellpop configuration's likelihood through the registry
+    (`create_likelihood` on its likelihood.xml, the data in memory); the
+    prior (uniform within 25% of bench's values, its XML in workdir)."""
+    from bcm3_tpu_torch import Prior, VariableSet
+    from bcm3_tpu_torch.likelihoods import create_likelihood
+
+    sub = os.path.join(workdir, f"{config}_{cells}_{num_cells}")
+    os.makedirs(sub, exist_ok=True)
+    path, data = cellpop_files(sub, config, cells, num_cells)
+    prior_path = os.path.join(sub, "prior.xml")
+    write_uniform_prior(prior_path, [(n, False, 0.75 * v, 1.25 * v)
+                                     for n, v in zip(CELLPOP_NAMES, CELLPOP_BASE)])
+    varset = VariableSet.from_xml(prior_path)
+    lik = create_likelihood(path, varset, _data={"exp1": data}, _sparse_stiff=sparse_stiff)
+    return Prior.from_xml(prior_path, varset), lik
+
+
+def cellpop_rows(rows, seed=0):
+    """bench.py:776-779's rows: base x exp(0.05 N(0, 1)), the normals from
+    a numpy seed (bench draws them with a JAX key); float64 on the host."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return np.array(CELLPOP_BASE) * np.exp(0.05 * rng.normal(size=(rows, 4)))
+
+
+CELLPOP_ROWS, CELLPOP_CELLS, CELLPOP_INITIAL = 512, 128, 16  # bench.py:758-767
+CELLPOP_REPS = {"cellpop": 3, "cellpop21": 1, "cellpop_matched": 1}
+CELLPOP_CPU_ROWS = 64
+# rows whose lanes all took the CPU's step counts are held at F64_RTOL; a
+# row with a lane that took another (see phase_cellpop_card_vs_cpu) at
+# the solver's rtol
+CELLPOP_SOLVER_RTOL = 1e-6
+CELLPOP_BUDGET_TRIPS = 256
+CELLPOP_PT_ENSEMBLES, CELLPOP_PT_SAMPLES, CELLPOP_PT_THIN = 64, 1, 3
+
+
+def device_busy(fn):
+    """(device busy ms, device operations, the profile's seconds) of one
+    fn() under the profiler, the device alone, summed from the profiler's
+    raw events (`device_profile` builds every event's Python object, ~0.2
+    ms each: minutes for the ~200,000 operations of a cellpop
+    evaluation). Raises if the trace holds no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    assert device, "the profiler traced no device event"
+    return sum(device) / 1e6, len(device), time.perf_counter() - t
+
+
+def cellpop_round_summary(exp):
+    """The simulation's rounds as recorded in exp.rounds: lanes solved, the
+    steps of a lane (mean, max), skipped rounds. One read of the steps."""
+    out = []
+    for r in exp.rounds:
+        if r.lanes:
+            st = r.steps.double().cpu()
+            out.append(dict(lanes=r.lanes, steps_mean=float(st.mean()), steps_max=int(st.max())))
+        else:
+            out.append(dict(lanes=0))
+    return out
+
+
+def host_reads(fn):
+    """(fn()'s result, the host reads it made): torch's warnings in the
+    sync debug mode "warn", one a synchronizing call."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def cellpop_stages(exp, fn):
+    """ms of one fn() (an evaluation) by stage, from CUDA events recorded
+    at each stage's end (exp.on_stage): setup, each round's solve, events
+    and allocation, the read-out, the scoring (the matching's host work
+    included)."""
+    import torch
+
+    marks = [("start", torch.cuda.Event(enable_timing=True))]
+    marks[0][1].record()
+
+    def on_stage(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    exp.on_stage = on_stage
+    try:
+        fn()
+    finally:
+        exp.on_stage = None
+    torch.cuda.synchronize()
+    stages, rnd = {}, 0
+    for (_, a), (name, b) in zip(marks, marks[1:]):
+        key = f"{name}_{rnd}" if name in ("solve", "events", "allocation") else name
+        stages[key] = round(stages.get(key, 0.0) + a.elapsed_time(b), 3)
+        rnd += name == "events"
+    return stages
+
+
+def stage_solver_timing(exp, B, smi):
+    """The cellpop21 step's linear algebra at B x capacity lanes on one
+    step's matrices (the model's Jacobian at perturbed initial states):
+    the sparse stage solver (factor_G + 4 solves) against the dense
+    lu_factor_ex + 4 lu_solve, float32, CUDA events; the solutions against
+    each other."""
+    import numpy as np
+    import torch
+
+    n = exp.model.num_ode_species
+    L = B * exp.max_cells
+    gen = torch.Generator(device=CARD)
+    gen.manual_seed(5)
+    y = torch.as_tensor(exp.model.initial_ode_values(), dtype=torch.float32, device=CARD)
+    y = y + torch.rand(L, n, generator=gen, device=CARD)
+    x = torch.as_tensor(cellpop_rows(L), dtype=torch.float32, device=CARD)
+    const = torch.as_tensor(exp.model.initial_constant_values(), dtype=torch.float32,
+                            device=CARD).expand(L, -1)
+    t = torch.zeros(L, device=CARD)
+    f0, ft, J = exp._jac(t, y, (x, const, t))
+    inv_hg = torch.full((L,), 1.0 / (1e-3 * 0.5), device=CARD)
+    rhs = [torch.rand(L, n, generator=gen, device=CARD) for _ in range(4)]
+    sparse = exp.sparse_solver
+
+    def run_sparse():
+        A = sparse.factor_G(sparse.entries_from_jacobian(J), inv_hg)
+        return [sparse.solve(A, r) for r in rhs]
+
+    def run_dense():
+        G = torch.eye(n, device=CARD) * inv_hg[:, None, None] - J
+        LU, piv, _ = torch.linalg.lu_factor_ex(G)
+        return [torch.linalg.lu_solve(LU, piv, r[..., None])[..., 0] for r in rhs]
+
+    xs, xd = run_sparse(), run_dense()
+    rel = max(float(((a - b).abs() / b.abs().clamp(min=1e-6)).max()) for a, b in zip(xs, xd))
+    ms_sparse = cuda_ms(run_sparse, 10)
+    ms_dense = cuda_ms(run_dense, 10)
+    _, ops_sparse, _ = device_busy(run_sparse)
+    _, ops_dense, _ = device_busy(run_dense)
+    log(f"cellpop21 stage solver at {L} lanes, n = {n}, float32 (one step's factor + 4 "
+        f"solves, CUDA events, mean of 10): sparse {ms_sparse:.3f} ms ({ops_sparse} device "
+        f"operations; {len(sparse._boxes)} elimination columns, fill {sparse.fill_nnz} of "
+        f"{n * n}), dense lu_factor_ex + lu_solve {ms_dense:.3f} ms ({ops_dense} operations); "
+        f"solutions agree to {rel:.2e} (relative); on {smi}")
+    assert np.isfinite(rel) and rel <= 1e-3
+    return dict(sparse_ms=ms_sparse, dense_ms=ms_dense)
+
+
+def phase_cellpop_config(workdir, smi, config):
+    """bench.py's `config` at its width (CELLPOP_ROWS rows x CELLPOP_CELLS
+    cells, CELLPOP_INITIAL initial, float32): a first evaluation (its host
+    reads counted, its rounds recorded; under the profiler, device busy
+    and operations, with CUDA events at each stage, but for
+    cellpop_matched, whose evaluation is split in `cellpop_matching`
+    instead), then CELLPOP_REPS[config] timed evaluations; peak memory."""
+    import torch
+
+    _, lik = cellpop_model(workdir, config, CELLPOP_CELLS, CELLPOP_INITIAL)
+    exp = lik.model.experiments[0]
+    x = torch.as_tensor(cellpop_rows(CELLPOP_ROWS), dtype=torch.float32, device=CARD)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    exp.rounds = []
+    stages, got = {}, {}
+
+    def first():
+        got["lp"], got["reads"] = host_reads(lambda: lik.log_prob_batched(x))
+
+    t = time.perf_counter()
+    if config == "cellpop_matched":
+        # the same simulation as cellpop's: its matching is timed apart below
+        first()
+        profiled = "not profiled (the simulation is cellpop's)"
+        busy_ms = ops = None
+    else:
+        busy_ms, ops, prof_s = device_busy(lambda: stages.update(cellpop_stages(exp, first)))
+        profiled = (f"{ops} device operations an evaluation; device busy {busy_ms:.1f} ms "
+                    f"(the first evaluation, profiled: {prof_s:.1f} s)")
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1e3
+    lp, reads = got["lp"], got["reads"]
+    rounds = cellpop_round_summary(exp)
+    exp.rounds = None
+    reps = CELLPOP_REPS[config]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        lik.log_prob_batched(x)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3 / reps
+    if busy_ms is not None:
+        profiled += f", idle share {1.0 - busy_ms / wall_ms:.4f}"
+    peak = torch.cuda.max_memory_allocated() - held
+    finite = int(torch.isfinite(lp).sum())
+    solver = "sparse" if exp.sparse_solver is not None else "dense"
+    B = CELLPOP_ROWS
+    log(f"{config}: {B} rows x {CELLPOP_CELLS} cells ({CELLPOP_INITIAL} initial), "
+        f"{exp.model.num_ode_species} ODE species, adaptive RODAS3 through the {solver} stage "
+        f"solver, float32: first evaluation {first_ms:.1f} ms; {wall_ms:.1f} ms an evaluation "
+        f"(host clock, synchronized, mean of {reps}) = {B / wall_ms * 1e3:.1f} evals/s; "
+        f"{finite}/{B} finite; {reads} host reads an evaluation; {profiled}; peak memory "
+        f"{peak / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held before; on {smi}")
+    log(f"{config} rounds (lanes, RODAS3 steps a lane): {json.dumps(rounds)}; "
+        f"{sum(r['lanes'] > 0 for r in rounds)} solved, {sum(r['lanes'] == 0 for r in rounds)} "
+        f"skipped")
+    if busy_ms is not None:
+        log(f"{config} time by stage (CUDA events in the first evaluation, profiled, ms): "
+            f"{json.dumps(stages)}")
+    assert finite == B
+    out = dict(evals_per_second=B / wall_ms * 1e3, ms=wall_ms, busy_ms=busy_ms, ops=ops,
+               reads=reads, rounds=rounds)
+    if config == "cellpop21":
+        out["stage_solver"] = stage_solver_timing(exp, B, smi)
+    if config == "cellpop_matched":
+        out["matching"] = cellpop_matching(lik, x, smi)
+    return out
+
+
+def cellpop_matching(lik, x, smi):
+    """The matched configuration's evaluation split: the device part
+    (simulation and cost matrices, CUDA events), the cost's pinned copy to
+    the host and the native matching (host clock), as `mitosis` splits it."""
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch import native
+    from bcm3_tpu_torch.cellpop.data_likelihood import host_costs
+
+    exp = lik.model.experiments[0]
+    tv = lik.model._transform(x)
+    parts = {}
+    device_ms = event_ms(lambda: parts.setdefault("p", exp.log_prob_parts(tv)))
+    _, _, ((cost, ov, sv),) = parts["p"]
+    host_costs(cost)  # the pinned staging buffer, allocated once
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    host = host_costs(cost)
+    copy_ms = (time.perf_counter() - t) * 1e3
+    ovn, svn = ov.cpu().numpy(), sv.cpu().numpy()
+    t = time.perf_counter()
+    totals = native.lap_match_logp_batch(host, ovn, svn)
+    match_ms = (time.perf_counter() - t) * 1e3
+    log(f"cellpop_matched evaluation split: simulation and cost matrices on the card "
+        f"{device_ms:.1f} ms (CUDA events), the cost ({host.nbytes / 2**20:.1f} MiB float64) "
+        f"pinned copy {copy_ms:.3f} ms, the native matching of {cost.shape[0]} rows "
+        f"{match_ms:.3f} ms = {match_ms * 1e3 / cost.shape[0]:.2f} us a row (host clock); "
+        f"on {smi}")
+    assert np.isfinite(totals).all()
+    return dict(device_ms=device_ms, copy_ms=copy_ms, match_ms=match_ms)
+
+
+def phase_cellpop(workdir, smi):
+    return phase_cellpop_config(workdir, smi, "cellpop")
+
+
+def phase_cellpop21(workdir, smi):
+    return phase_cellpop_config(workdir, smi, "cellpop21")
+
+
+def phase_cellpop_matched(workdir, smi):
+    return phase_cellpop_config(workdir, smi, "cellpop_matched")
+
+
+def cellpop_steps(exp):
+    """{flat lane: steps} of every solved lane of each round of the last
+    evaluation, one dict a round."""
+    return [dict(zip(r.index.cpu().tolist(), r.steps.cpu().tolist())) if r.lanes else {}
+            for r in exp.rounds]
+
+
+def cellpop_cpu_reference(workdir, path):
+    """The CPU's side of `phase_cellpop_card_vs_cpu`, run in a process of
+    its own while the card runs the cellpop phases: for each configuration
+    on CELLPOP_CPU_ROWS rows the float64 log-densities and each round's
+    {lane: steps}, and the float32 log-densities, into `path` (JSON)."""
+    import torch
+
+    torch.set_num_threads(4)  # the card's phases keep a core busy launching
+    out = {}
+    for config in CELLPOP_CONFIGS:
+        _, lik = cellpop_model(os.path.join(workdir, "cpu"), config, CELLPOP_CELLS,
+                               CELLPOP_INITIAL)
+        exp = lik.model.experiments[0]
+        rows = torch.as_tensor(cellpop_rows(CELLPOP_CPU_ROWS, seed=1))
+        exp.rounds = []
+        lp64 = lik.log_prob_batched(rows).tolist()
+        steps = [{str(k): v for k, v in r.items()} for r in cellpop_steps(exp)]
+        exp.rounds = None
+        lp32 = lik.log_prob_batched(rows.float()).double().tolist()
+        out[config] = dict(lp64=lp64, steps=steps, lp32=lp32)
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(path + ".tmp", path)
+
+
+def start_cellpop_cpu_reference(workdir):
+    """The CPU reference's process (spawned: this one has CUDA state) and
+    its result file."""
+    import multiprocessing
+
+    path = os.path.join(workdir, "cellpop_cpu_reference.json")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=cellpop_cpu_reference, args=(workdir, path), daemon=True)
+    proc.start()
+    return proc, path
+
+
+def phase_cellpop_card_vs_cpu(workdir, smi, reference):
+    """Each configuration on CELLPOP_CPU_ROWS rows: the card's float64
+    against the CPU's (`reference`: the process of `cellpop_cpu_reference`
+    and its file, waited for here), lane by lane the RODAS3 step counts of
+    every round and row by row the log-density (F64_RTOL where every lane
+    took the CPU's step count, the solver's rtol otherwise; equal -inf
+    sets); the card's float32 against the CPU's float64, its limit ten
+    times the CPU's own float32 error on the rows; the budget form's solve
+    of the cellpop rows' first round under the sync debug mode "error"."""
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch.ode.rosenbrock import solve_at_times_stiff_budget
+
+    proc, path = reference
+    cards = {}
+    for config in CELLPOP_CONFIGS:
+        _, lik = cellpop_model(workdir, config, CELLPOP_CELLS, CELLPOP_INITIAL)
+        exp = lik.model.experiments[0]
+        rows = torch.as_tensor(cellpop_rows(CELLPOP_CPU_ROWS, seed=1), device=CARD)
+        exp.rounds = []
+        card = lik.log_prob_batched(rows).cpu().numpy()
+        steps = cellpop_steps(exp)
+        exp.rounds = None
+        card32 = lik.log_prob_batched(rows.float()).double().cpu().numpy()
+        cards[config] = (card, steps, card32, exp.max_cells)
+    t = time.perf_counter()
+    proc.join(timeout=600)
+    waited = time.perf_counter() - t
+    assert proc.exitcode == 0, f"the CPU reference's process ended with {proc.exitcode}"
+    with open(path) as f:
+        reference = json.load(f)
+    log(f"cellpop card vs CPU: the CPU reference (a process of its own) waited for "
+        f"{waited:.1f} s after the card's runs")
+    out = {}
+    for config, (card, steps_card, card32, N) in cards.items():
+        ref = reference[config]
+        cpu, cpu32 = np.array(ref["lp64"]), np.array(ref["lp32"])
+        steps_cpu = [{int(k): v for k, v in r.items()} for r in ref["steps"]]
+        lanes = differ = 0
+        rows_apart = set()
+        for r, (a, b) in enumerate(zip(steps_cpu, steps_card)):
+            assert a.keys() == b.keys(), f"{config}: round {r} solved other lanes on the card"
+            lanes += len(a)
+            for lane in a:
+                if a[lane] != b[lane]:
+                    differ += 1
+                    rows_apart.add(lane // N)
+                    if differ <= 8:
+                        log(f"{config} card vs CPU: round {r} lane {lane} (row {lane // N}, "
+                            f"slot {lane % N}) {b[lane]} steps on the card, {a[lane]} on the CPU")
+        fin = np.isfinite(cpu)
+        assert np.array_equal(fin, np.isfinite(card)) and fin.all()
+        rel = np.abs(card - cpu) / np.abs(cpu)
+        same = np.array([i not in rows_apart for i in range(len(cpu))])
+        log(f"{config} card vs CPU, float64, {CELLPOP_CPU_ROWS} rows: {lanes} lanes solved, "
+            f"{differ} ({differ / max(lanes, 1):.4%}) took another step count on the card, in "
+            f"{len(rows_apart)} rows; max rel err {rel[same].max(initial=0.0):.3e} on the rows "
+            f"without one (limit {F64_RTOL}), {rel[~same].max(initial=0.0):.3e} on the others "
+            f"(limit {CELLPOP_SOLVER_RTOL}); on {smi}")
+        assert rel[same].max(initial=0.0) <= F64_RTOL
+        assert rel[~same].max(initial=0.0) <= CELLPOP_SOLVER_RTOL
+        own = float((np.abs(cpu32 - cpu) / np.abs(cpu)).max())
+        rel32 = np.abs(card32 - cpu) / np.abs(cpu)
+        log(f"{config} card float32 vs CPU float64: max rel err {rel32.max():.3e} (limit "
+            f"{10 * own:.3e}, ten times the CPU's own float32 error {own:.3e})")
+        assert np.isfinite(card32).all() and rel32.max() <= 10 * own
+        out[config] = dict(lanes=lanes, differ=differ, rel64=float(rel[same].max(initial=0.0)),
+                           rel32=float(rel32.max()), own32=own)
+
+    # the budget form makes no host read: the first round of the cellpop rows
+    _, lik = cellpop_model(workdir, "cellpop", CELLPOP_CELLS, CELLPOP_INITIAL)
+    exp = lik.model.experiments[0]
+    tv = torch.as_tensor(cellpop_rows(CELLPOP_ROWS), dtype=torch.float32, device=CARD)
+    nsp = exp._nsp(tv)
+    C0, n = exp.initial_cells, exp.model.num_ode_species
+    y0 = exp._initial_conditions_with_variability(exp._initial_state(tv), tv, nsp, True)
+    params = exp._cell_params(tv, nsp, True)[:, :C0].reshape(-1, tv.shape[1])
+    L = params.shape[0]
+    consts = exp._const("const_y", exp.model.initial_constant_values(), tv).expand(L, -1)
+    creation = exp._entry_times(tv, nsp)[:, :C0].reshape(-1)
+    args = (params, consts, creation)
+    grid = exp._const("grid", exp.grid, tv)
+    kw = dict(args=args, rtol=exp.rtol, atol=exp.atol, sparse=exp.sparse_solver, jac=exp._jac)
+    y0 = y0[:, :C0].reshape(-1, n)
+    # one trip first: the solver's index tables are copied to the card at
+    # their first use
+    solve_at_times_stiff_budget(exp._rhs, y0, grid, total_trips=1, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = solve_at_times_stiff_budget(exp._rhs, y0, grid, total_trips=CELLPOP_BUDGET_TRIPS,
+                                          **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"cellpop budget RODAS3 solve of the first round ({L} lanes, {CELLPOP_BUDGET_TRIPS} "
+        f"trips, float32) under torch.cuda.set_sync_debug_mode('error'): no host read; "
+        f"{int(res.ok.sum())} lanes reached the grid's end within the budget")
+    out["budget_lanes_ok"] = int(res.ok.sum())
+    return out
+
+
+def phase_cellpop_pt(workdir, smi):
+    """SamplerPT over the registry's cell_population likelihood at
+    bench_cellpop's configuration, 8 x CELLPOP_PT_ENSEMBLES chains (bench's
+    512 rows), CELLPOP_PT_SAMPLES sample thinned by CELLPOP_PT_THIN: one run
+    (its outputs checked; the wall of its iterations), then one more
+    iteration under the profiler (device busy; the slices' profile of a
+    whole run would process ~1 M host and device events an iteration)."""
+    import numpy as np
+
+    from bcm3_tpu_torch.sampler import SamplerPT
+
+    prior, lik = cellpop_model(workdir, "cellpop", CELLPOP_CELLS, CELLPOP_INITIAL)
+    cfg = dataclasses.replace(pt_config(CELLPOP_PT_ENSEMBLES, CELLPOP_PT_SAMPLES),
+                              use_every_nth=CELLPOP_PT_THIN)
+    sampler = SamplerPT(prior, lik, cfg)
+    res = sampler.run()
+    lpost = res["log_prior"] + res["log_likelihood"]
+    mut, exc = sampler.acceptance_rates(sampler.state)
+    iterations = cfg.num_samples * cfg.use_every_nth
+    wall_ms = res["sampling_seconds"] * 1e3 / iterations
+    busy_ms, ops, prof_s = device_busy(
+        lambda: sampler._iteration(sampler.state, sampler.proposals,
+                                   sampler.draw(sampler.proposals)))
+    log(f"cellpop_pt: {NUM_CHAINS} x {CELLPOP_PT_ENSEMBLES} chains, {iterations} iterations "
+        f"({res['evaluations']} evaluations in {res['elapsed_seconds']:.3f} s with the start "
+        f"search): wall {wall_ms:.1f} ms an iteration = {res['evals_per_second']:.1f} evals/s "
+        f"of the run; one more iteration under the profiler: device busy {busy_ms:.1f} ms "
+        f"({ops} device operations, {prof_s:.1f} s), idle share {1.0 - busy_ms / wall_ms:.4f}; "
+        f"T=1 mutate acceptance {mut[-1]:.4f}, exchange {np.round(exc, 4).tolist()}; on {smi}")
+    assert np.isfinite(lpost).all() and 0.0 < mut[-1] < 1.0
+    return res["evals_per_second"]
+
+
 def main(workdir):
     phase_times = {}
 
@@ -3189,9 +3871,18 @@ def main(workdir):
     evals["mitosis_time_estimation"] = main_path("mitosis", (), phase_mitosis, workdir, smi)
     evals["cell_cycle_marker"] = main_path("cell_cycle_marker", (), phase_cell_cycle_marker,
                                            smi)
+    # the cell-population likelihood: no kernel serves it (XLA and the host
+    # matching in the JAX package); the CPU's reference for its card-vs-CPU
+    # check runs meanwhile in a process of its own
+    reference = start_cellpop_cpu_reference(workdir)
+    for config, phase in (("cellpop", phase_cellpop), ("cellpop21", phase_cellpop21),
+                          ("cellpop_matched", phase_cellpop_matched)):
+        evals[config] = main_path(config, (), phase, workdir, smi)["evals_per_second"]
+    evals["cellpop_pt"] = main_path("cellpop_pt", (), phase_cellpop_pt, workdir, smi)
     launches = {k: sum(p[k] for p in paths.values()) for k in counters}
     log(f"main-path launches: {launches}; per slice {json.dumps(paths)}")
 
+    timed("cellpop_card_vs_cpu", phase_cellpop_card_vs_cpu, workdir, smi, reference)
     timed("em_card_vs_cpu", phase_em, adapted, smi)
     for pk_type in ("one", "one_transit"):
         timed(f"card_vs_cpu_{pk_type}", phase_oracle, pk_type, workdir)

@@ -839,3 +839,109 @@ def test_cell_cycle_marker_on_the_card_matches_cpu(cuda):
     model = CellCycleMarkerLikelihood(vs, cs.ccm_track())
     xs = np.array(cs.CCM_TRUTH) * (1.0 + 0.1 * np.random.default_rng(0).normal(size=(256, 10)))
     _card_and_cpu(model, torch.as_tensor(xs), cuda, 1e-10, cs.CCM_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# the cell-population likelihood (RODAS3, the sparse stage solver)
+
+
+def _cellpop_lanes(cs, tmp_path, config, L, device, dtype=torch.float64):
+    """The first round's lanes of a bench cellpop configuration: (the
+    experiment, rhs, jac, y0 (L, n), args, grid), on device."""
+    _, lik = cs.cellpop_model(str(tmp_path), config, 8, 2)
+    exp = lik.model.experiments[0]
+    tv = torch.as_tensor(cs.cellpop_rows(L // 2), dtype=dtype, device=device)
+    nsp = exp._nsp(tv)
+    n = exp.model.num_ode_species
+    y0 = exp._initial_conditions_with_variability(exp._initial_state(tv), tv, nsp, True)
+    params = exp._cell_params(tv, nsp, True)[:, :2].reshape(L, -1)
+    consts = exp._const("const_y", exp.model.initial_constant_values(), tv).expand(L, -1)
+    creation = exp._entry_times(tv, nsp)[:, :2].reshape(-1)
+    return exp, y0[:, :2].reshape(L, n), (params, consts, creation), exp._const("grid", exp.grid, tv)
+
+
+@pytest.mark.parametrize("form", ["adaptive", "budget"])
+def test_rodas3_on_the_card_matches_cpu(cuda, tmp_path, form):
+    """64 lanes of the cellpop model's first round, float64, through the
+    sparse stage solver: the card's trajectories equal the CPU's within
+    1e-10 on every lane that took the CPU's step count (the adaptive form),
+    and within the solver's rtol on the others, at most half of them (a
+    clipped landing one ulp short of its stop turns on the last bit of t,
+    tests/test_torch_rosenbrock.py: 24 of these 64 lanes on an H100 against
+    the CPU); the budget form makes no host read."""
+    from bcm3_tpu_torch.ode import rosenbrock as R
+
+    cs = _chip_smoke()
+    out = {}
+    for dev in ("cpu", cuda):
+        exp, y0, args, grid = _cellpop_lanes(cs, tmp_path, "cellpop", 64, dev)
+        kw = dict(args=args, rtol=exp.rtol, atol=exp.atol, sparse=exp.sparse_solver, jac=exp._jac)
+        if form == "adaptive":
+            out[str(dev)] = R.solve_at_times_stiff(exp._rhs, y0, grid, **kw)
+        else:
+            if dev != "cpu":
+                # the solver's index tables go to the card at their first use
+                R.solve_at_times_stiff_budget(exp._rhs, y0, grid, total_trips=1, **kw)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out[str(dev)] = R.solve_at_times_stiff_budget(exp._rhs, y0, grid,
+                                                              total_trips=300, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert torch.equal(cpu.ok, card.ok.cpu()) and cpu.ok.all()
+    same = (cpu.n_steps == card.n_steps.cpu()).numpy()
+    scale = cpu.ys.abs().amax(dim=1, keepdim=True).clamp(min=1e-300)
+    err = ((card.ys.cpu() - cpu.ys).abs() / scale).amax(dim=(1, 2)).numpy()
+    assert err[same].max(initial=0.0) <= 1e-10
+    assert err[~same].max(initial=0.0) <= 1e-5 and (~same).sum() <= 64 // 2
+
+
+def test_sparse_stage_solver_on_the_card(cuda):
+    """The sparse factor and solve on the card against lu_factor_ex and
+    lu_solve of the dense G and against the CPU, float64, 1,000 lanes of
+    the 20-species cascade's pattern; a singular G fails soft on the card."""
+    from bcm3_tpu_torch.ode.sparse_lu import SparseStageSolver
+    from bcm3_tpu_torch.sbml import SBMLModel
+
+    cs = _chip_smoke()
+    P = SBMLModel.from_string(cs.cascade_model(8)).jacobian_sparsity()
+    solver = SparseStageSolver(P)
+    n, L = P.shape[0], 1000
+    rng = np.random.default_rng(0)
+    nz = np.asarray(solver.jac_nz)
+    entries = torch.as_tensor(rng.normal(size=(L, len(nz))))
+    inv_hg = torch.as_tensor(rng.uniform(5.0, 10.0, L))
+    b = torch.as_tensor(rng.normal(size=(L, n)))
+    x_cpu = solver.solve(solver.factor_G(entries, inv_hg), b)
+    A = solver.factor_G(entries.to(cuda), inv_hg.to(cuda))
+    x = solver.solve(A, b.to(cuda))
+    G = torch.eye(n, dtype=torch.float64, device=cuda) * inv_hg.to(cuda)[:, None, None]
+    G[:, nz[:, 0], nz[:, 1]] -= entries.to(cuda)
+    LU, piv, info = torch.linalg.lu_factor_ex(G)
+    x_dense = torch.linalg.lu_solve(LU, piv, b.to(cuda)[..., None])[..., 0]
+    torch.testing.assert_close(x, x_dense, rtol=1e-9, atol=1e-12)
+    torch.testing.assert_close(x.cpu(), x_cpu, rtol=1e-12, atol=1e-14)
+
+    P = np.zeros((3, 3), dtype=bool)
+    P[0, 1] = P[1, 0] = True
+    solver = SparseStageSolver(P)
+    J = {(0, 0): 0.0, (0, 1): 2.0, (1, 0): 2.0, (1, 1): -3.0, (2, 2): 0.0}
+    e = torch.tensor([[J[ij] for ij in solver.jac_nz]], dtype=torch.float64, device=cuda)
+    x = solver.solve(solver.factor_G(e, torch.ones(1, dtype=torch.float64, device=cuda)),
+                     torch.ones(1, 3, dtype=torch.float64, device=cuda))
+    assert not torch.isfinite(x).all()
+
+
+@pytest.mark.parametrize("config", ["cellpop", "cellpop_matched"])
+def test_cell_population_on_the_card_matches_cpu(cuda, tmp_path, config):
+    """cell_population (bench's model, 8 cells, 2 initial) on 6 rows: the
+    card's float64 against the CPU's within the solver's rtol and equal
+    -inf sets, float32 within 1e-4."""
+    cs = _chip_smoke()
+    _, lik = cs.cellpop_model(str(tmp_path), config, 8, 2)
+    xs = torch.as_tensor(cs.cellpop_rows(6))
+    xs[5, 0] = float("nan")  # a failed integration: -inf
+    cpu = _card_and_cpu(lik, xs, cuda, cs.CELLPOP_SOLVER_RTOL, 1e-4)
+    assert torch.isneginf(cpu[5]) and torch.isfinite(cpu[:5]).all()

@@ -87,3 +87,18 @@ def test_wrappers_never_fall_back_off_cpu(wrapper):
             params = {k: torch.empty(5, **meta) for k in PARAM_NAMES}
             grid = torch.empty((5, 7), **meta)
             transit_solve(params, grid, grid)
+
+
+def test_registry_builds_cell_population_and_refuses_fisa(tmp_path):
+    """cell_population is ported (built from its likelihood.xml, its data
+    in memory); fISA still raises NotImplementedError naming ROADMAP A12."""
+    import chip_smoke
+    from bcm3_tpu_torch.cellpop.likelihood import CellPopulationLikelihood
+    from bcm3_tpu_torch.likelihoods import create_likelihood
+    from bcm3_tpu_torch.model.variables import VariableSet
+
+    prior, lik = chip_smoke.cellpop_model(str(tmp_path), "cellpop", 4, 2)
+    assert lik.name == "cell_population" and isinstance(lik.model, CellPopulationLikelihood)
+    assert lik.model.experiments[0].sparse_solver is not None
+    with pytest.raises(NotImplementedError, match="A12"):
+        create_likelihood("fISA", VariableSet())

@@ -142,8 +142,8 @@ def test_unported_pk_types_raise(tmp_path, monkeypatch, pk_type):
 def test_unported_likelihood_type_raises(tmp_path):
     path = os.path.join(tmp_path, "lik.xml")
     with open(path, "w") as f:
-        f.write('<bcm_likelihood type="cell_population"/>')
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        f.write('<bcm_likelihood type="fISA"/>')
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         create_likelihood(path, VariableSet())
 
 
