@@ -13,7 +13,8 @@ functions. The Incucyte likelihood's experiments carry across the same
 way (`incucyte_experiment_from_arrays`), so that both packages score the
 same data, and so does a cell-population simulator's configuration
 (`population_config_from_arrays`), so that both simulate the same
-population.
+population, and a fISA signaling network (`fisa_network_from_fields`), so
+that both solve the same structure from the same starts.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from bcm3_tpu_torch.sampler.spectral import ClusterAssigner
 
 if TYPE_CHECKING:
     from bcm3_tpu_torch.cellpop.simulate import PopulationConfig
+    from bcm3_tpu_torch.fisa.network import SignalingNetwork
     from bcm3_tpu_torch.likelihoods.cellmisc import IncucyteExperiment
 
 STATE_FIELDS = (
@@ -145,3 +147,34 @@ def population_config_from_arrays(fields: Mapping[str, object]) -> PopulationCon
             v = SparseStageSolver(np.asarray(getattr(v, "jac_pattern", v), dtype=bool))
         kw[f.name] = v
     return PopulationConfig(**kw)
+
+
+def fisa_network_from_fields(fields: Mapping[str, object]) -> SignalingNetwork:
+    """The port's SignalingNetwork from a JAX package network's fields as
+    plain Python and numpy: `molecules` (one mapping of Molecule fields
+    each, e.g. ``dataclasses.asdict(m)``, with the resolved parameter
+    indices), `_order` (the SCC order, lists of molecule indices),
+    `_multiroot_starts` (an (M, d) array a feedback component, None a
+    singleton), `activation_limit` and `multiroot_solves`. The network is
+    imported here, as above."""
+    from bcm3_tpu_torch.fisa.network import Molecule, SignalingNetwork
+
+    def plain(v):
+        if isinstance(v, (list, tuple)):
+            return [plain(x) for x in v]
+        if v is None or isinstance(v, (bool, str)):
+            return v
+        return int(v)
+
+    molecules = [
+        Molecule(**{f.name: (str(m[f.name]) if f.type == "str" else plain(m[f.name]))
+                    for f in dataclasses.fields(Molecule)})
+        for m in fields["molecules"]
+    ]
+    net = SignalingNetwork(molecules, str(fields["activation_limit"]),
+                           int(fields["multiroot_solves"]))
+    net._order = [[int(i) for i in comp] for comp in fields["_order"]]
+    net.has_feedback = any(len(c) > 1 for c in net._order)
+    net._multiroot_starts = [None if s is None else np.array(s, dtype=np.float64)
+                             for s in fields["_multiroot_starts"]]
+    return net

@@ -9,10 +9,9 @@ the analytic targets (``banana``, ``circular``, ``multimodal_gaussians``,
 types (``pharmaco_single``, ``pharmaco_population``,
 ``pharmacokinetic_trajectory``), the generic ``ODE`` and ``dll``, and
 the cell likelihoods ``cell_cycle_marker``, ``mitosis_time_estimation``,
-``incucyte_population`` and ``cell_population``; the JAX package's other
-type (``fISA``) raises NotImplementedError naming its ROADMAP item
-(`_UNPORTED`). `fixed_parameter_likelihood` builds the
-likelihood of `--bcmopt`.
+``incucyte_population`` and ``cell_population``, and ``fISA``: every type
+of the JAX package. `fixed_parameter_likelihood` builds the likelihood of
+`--bcmopt`.
 """
 
 from __future__ import annotations
@@ -185,6 +184,13 @@ def _cell_population(varset: VariableSet, attrs) -> Likelihood:
     return Likelihood("cell_population", model.log_prob_batched, attrs=attrs, model=model)
 
 
+def _fisa(varset: VariableSet, attrs) -> Likelihood:
+    from bcm3_tpu_torch.fisa import create_fisa_likelihood
+
+    model = create_fisa_likelihood(varset, attrs)
+    return Likelihood("fISA", model.log_prob_batched, attrs=attrs, model=model)
+
+
 _REGISTRY: Dict[str, Callable[..., Likelihood]] = {
     "banana": _banana,
     "circular": _circular,
@@ -201,11 +207,7 @@ _REGISTRY: Dict[str, Callable[..., Likelihood]] = {
     "mitosis_time_estimation": _mitosis,
     "incucyte_population": _incucyte,
     "cell_population": _cell_population,
-}
-
-# the JAX package's other types and the ROADMAP item that ports each
-_UNPORTED = {
-    "fISA": "A12",
+    "fISA": _fisa,
 }
 
 
@@ -244,8 +246,8 @@ def create_likelihood(filename_or_type: str, varset: VariableSet, **kwargs) -> L
         attrs: Dict[str, Any] = dict(root.attrib)
         attrs["_xml_path"] = filename_or_type
         attrs["_xml_root"] = root
-        # options that are no XML attribute, such as cell_population's
-        # `_data` (its data groups in memory)
+        # options that are no XML attribute, such as cell_population's and
+        # fISA's `_data` (their data groups in memory)
         attrs.update({k: v for k, v in kwargs.items() if k.startswith("_")})
     else:
         ltype = filename_or_type
@@ -253,11 +255,6 @@ def create_likelihood(filename_or_type: str, varset: VariableSet, **kwargs) -> L
             k: (v if k.startswith("_") or not isinstance(v, (int, float)) else str(v))
             for k, v in kwargs.items()
         }
-    if ltype in _UNPORTED:
-        raise NotImplementedError(
-            f"likelihood type '{ltype}' is not ported yet (ROADMAP {_UNPORTED[ltype]}); "
-            f"ported: {sorted(_REGISTRY)}"
-        )
     if ltype not in _REGISTRY:
         raise ValueError(f"Unknown likelihood type '{ltype}'; available: {sorted(_REGISTRY)}")
     return _REGISTRY[ltype](varset, attrs)

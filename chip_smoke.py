@@ -191,14 +191,37 @@ Phases, each printing its lines before the last:
    log-density (1e-10 where every lane took the CPU's step count, the
    solver's rtol otherwise), float32 against the CPU's float64 within ten
    times the CPU's own float32 error; the budget RODAS3 form on the first
-   round's 8,192 lanes under the sync debug mode "error" (no host read).
+   round's 8,192 lanes under the sync debug mode "error" (no host read);
+36. `fisa`: bench.py bench_fisa's network (A <-> B, mutually activating,
+   under the logistic limit; 10 Sobol starts; built in memory, its data
+   through `_data`) at 65,536 rows (bench's batch: 655,360 lanes) and
+   524,288 rows of its values with jitter 0.01, float32: evals/s over 3
+   evaluations after a warm one, device operations, busy time and idle
+   share of one evaluation under the profiler, host reads of one (0),
+   peak memory;
+37. `fisa_card_vs_cpu`: the bistable network, a feedback network with
+   every drug effect, conditions and expression levels, and an
+   incucyte-sequential experiment relative to a single-condition one, on
+   256 rows each: the card's float64 against the CPU's (1e-10 on every row;
+   rows whose kept solve stopped short of its root after the 20 Newton
+   steps counted), the card's float32 against the CPU's float64 within ten times
+   the CPU's own float32 error on the rows with the same best roots (the
+   others counted);
+38. `fisa_pt`: SamplerPT over the registry's fISA at bench_fisa's
+   configuration, 8 x 8,192 chains, 20 samples thinned by 5: s an
+   iteration, evals/s;
+39. `rbridge`: bcm3_tpu_torch.rbridge's handles on the card (its default)
+   against handles with device="cpu": the banana fixture and the
+   bench_fisa network through `_data`; likelihood, prior and the fISA
+   accessors to float64 rounding.
 
 The kernels' launch counters are set to 0 just before each slice of the
-main path (phases 4-7, 9, 10, 13-20 and 22-34) and read just after it, so
-the counts show that each slice itself went through the kernels
-(`cli_one` through B1 and B2; phases 13-15, 20, 22, 23 and 26-34 run paths
-that no kernel serves; phases 16, 17 and 19 through B1 and B1T, phases 18
-and 24 through B1, phase 25 through B2).
+main path (phases 4-7, 9, 10, 13-20, 22-34 and 36-39) and read just after
+it, so the counts show that each slice itself went through the kernels
+(`cli_one` through B1 and B2; phases 13-15, 20, 22, 23, 26-34 and 36-39
+run paths that no kernel serves, and 36-39 must launch none; phases 16, 17
+and 19 through B1 and B1T, phases 18 and 24 through B1, phase 25 through
+B2).
 Any failed check raises, and the script exits non-zero without printing a
 result.
 
@@ -3386,7 +3409,9 @@ def cellpop_round_summary(exp):
 
 def host_reads(fn):
     """(fn()'s result, the host reads it made): torch's warnings in the
-    sync debug mode "warn", one a synchronizing call."""
+    sync debug mode "warn", one a synchronizing call (not the notice that
+    the mode is a prototype, which the mode's first use in a process
+    gives)."""
     import warnings
 
     import torch
@@ -3399,7 +3424,7 @@ def host_reads(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    return out, sum("called a synchronizing" in str(w.message) for w in caught)
 
 
 def cellpop_stages(exp, fn):
@@ -3774,6 +3799,433 @@ def phase_cellpop_pt(workdir, smi):
     return res["evals_per_second"]
 
 
+# ---------------------------------------------------------------------------
+# fISA: bench.py bench_fisa's network and two richer fixtures, built in
+# memory (the data through `_data`, so that no h5py is needed)
+
+CELLDESIGNER = "http://www.sbml.org/2001/ns/celldesigner"
+
+
+def fisa_species(sid, name, cls, notes=""):
+    """A CellDesigner species of class `cls` with its notes."""
+    notes_xml = (f"<notes><body xmlns='http://www.w3.org/1999/xhtml'><p>{notes}</p></body>"
+                 f"</notes>" if notes else "")
+    return (f'<species id="{sid}" name="{name}" initialAmount="0">{notes_xml}'
+            f"<annotation><celldesigner:extension xmlns:celldesigner='{CELLDESIGNER}'>"
+            f"<celldesigner:speciesIdentity><celldesigner:class>{cls}</celldesigner:class>"
+            f"</celldesigner:speciesIdentity></celldesigner:extension></annotation></species>")
+
+
+def fisa_reaction(rid, reactant, product, positive=True):
+    rtype = "POSITIVE_INFLUENCE" if positive else "NEGATIVE_INFLUENCE"
+    return (f'<reaction id="{rid}"><annotation><celldesigner:extension '
+            f"xmlns:celldesigner='{CELLDESIGNER}'><celldesigner:reactionType>{rtype}"
+            f"</celldesigner:reactionType></celldesigner:extension></annotation>"
+            f'<listOfReactants><speciesReference species="{reactant}"/></listOfReactants>'
+            f'<listOfProducts><speciesReference species="{product}"/></listOfProducts>'
+            f"</reaction>")
+
+
+def fisa_sbml(species, reactions):
+    return (f'<?xml version="1.0"?>\n<sbml xmlns="{SBML_NS}" level="2" version="4">'
+            f'<model id="net"><listOfSpecies>{"".join(species)}</listOfSpecies>'
+            f'<listOfReactions>{"".join(reactions)}</listOfReactions></model></sbml>\n')
+
+
+# bench.py:525-573: A <-> B, mutually activating, under the logistic limit
+FISA_BISTABLE_SBML = fisa_sbml(
+    [fisa_species("s1", "A", "PROTEIN"), fisa_species("s2", "B", "PROTEIN")],
+    [fisa_reaction("r1", "s1", "s2"), fisa_reaction("r2", "s2", "s1")])
+# (name, logspace, value) of each fixture's variables; bench.py:575
+FISA_VARIABLES = {
+    "bistable": [("base_A", False, 0.15), ("base_B", False, 0.15),
+                 ("strength_A_B", False, 0.8), ("strength_B_A", False, 0.8)],
+    # a feedback network with the four drug effects (with and without a
+    # dose-response), a complete-loss mutation, a drug transporter,
+    # expression levels and mixing, conditions by data, variable and value,
+    # and the four error models with NaN observations
+    "network": [
+        ("base_A", False, 0.2), ("base_C", False, 0.1),
+        ("strength_A_B", False, 0.9), ("inflection_A_B", False, 0.4),
+        ("steepness_A_B", False, 6.0), ("strength_B_A", False, 0.7),
+        ("strength_B_C", False, 0.8), ("strength_A_proliferation", False, 0.9),
+        ("strength_C_proliferation", False, 0.3), ("strength_LOSS_C", False, 0.5),
+        ("maxinhib_drugX_A", False, 0.8), ("ic50_drugX_A", False, -0.5),
+        ("logsteepness_drugX_A", False, 0.1), ("maxinhib_drugY_C", False, 0.6),
+        ("drugZ_proliferation_susceptibility", False, 0.7), ("maxinhib_drugW_B", False, 0.3),
+        ("expression_mixing[B]", False, 0.6), ("base_expression[A]", False, 0.1),
+        ("scale_expression[A]", False, 0.8), ("base_expression[C]", False, 0.2),
+        ("y_conc", False, 0.4), ("base_p", False, 0.05), ("scale_p", False, 0.9),
+        ("sd_p", True, -1.0), ("sd_c", False, 0.08),
+    ],
+    # tests/test_fisa.py:266-300: EGFR -> ERK -> proliferation, ERK -| apoptosis
+    "incucyte": [("base_EGFR", False, 0.6), ("base_apoptosis", False, 0.9),
+                 ("strength_EGFR_ERK", False, 0.9), ("strength_ERK_proliferation", False, 0.8),
+                 ("strength_ERK_apoptosis", False, 0.7), ("maxinhib_drugX_ERK", False, 0.6)],
+}
+FISA_JITTER = 0.01  # bench.py:580
+
+
+def _fisa_network_files(workdir, feedback):
+    import numpy as np
+
+    species = [
+        fisa_species("s1", "A", "PROTEIN"), fisa_species("s2", "B", "PROTEIN"),
+        fisa_species("s3", "C", "PROTEIN"), fisa_species("s4", "proliferation", "PHENOTYPE"),
+        fisa_species("s5", "drugX", "DRUG", "inhibit activity"),
+        fisa_species("s6", "drugY", "DRUG", "inhibit activation"),
+        fisa_species("s7", "drugZ", "DRUG", "alter susceptibility"),
+        fisa_species("s8", "drugW", "DRUG", "activate"),
+        fisa_species("s9", "LOSS", "GENE", "complete_loss"),
+        fisa_species("s10", "PUMP", "PROTEIN", "drug_transporter"),
+    ]
+    reactions = [
+        fisa_reaction("r1", "s1", "s2"), fisa_reaction("r3", "s2", "s3"),
+        fisa_reaction("r4", "s1", "s4"), fisa_reaction("r5", "s3", "s4", positive=False),
+        fisa_reaction("r6", "s5", "s1", positive=False),
+        fisa_reaction("r7", "s6", "s3", positive=False), fisa_reaction("r8", "s7", "s4"),
+        fisa_reaction("r9", "s8", "s2"), fisa_reaction("r10", "s9", "s3"),
+        fisa_reaction("r11", "s10", "s1"),
+    ]
+    if feedback:
+        reactions.append(fisa_reaction("r2", "s2", "s1"))
+    with open(os.path.join(workdir, "net.xml"), "w") as f:
+        f.write(fisa_sbml(species, reactions))
+    P = 3
+    data = {
+        "cell_lines": np.array([b"c1", b"c2", b"c3"]),
+        "x_conc": np.array([0.0, 0.3, 1.0]),
+        "w_levels": np.array([[0.0, 0.0, 0.0], [0.2, 0.0, 0.5]]),
+        "loss": np.array([0.0, 0.0, 1.0]),
+        "a_expr": np.array([0.9, 0.5, 0.7]),
+        "c_expr": np.array([0.6, 0.8, 0.4]),
+        "prolif": np.array([[0.35, 0.3, 0.4], [0.33, np.nan, 0.42]]),
+        "a_data": np.array([[0.6, 0.5, 0.55]]),
+        "c_data": np.array([[0.3, 0.25, 0.05]]),
+        "b_data": np.array([[0.7, np.nan, 0.6]]),
+    }
+    assert all(len(np.atleast_2d(v)[-1]) == P for v in data.values())
+    limit = "logistic" if feedback else "minmax"
+    xml = (
+        '<bcm_likelihood type="fISA">\n'
+        f'<experiment name="exp1" model_file="net.xml" data_file="data.nc"'
+        f' activation_limit="{limit}" multiroot_solves="6">\n'
+        '  <condition species_name="drugX" data_name="x_conc"/>\n'
+        '  <condition species_name="drugY" variable_name="y_conc"/>\n'
+        '  <condition species_name="drugZ" value="0.3"/>\n'
+        '  <condition species_name="drugW" data_name="w_levels[1]"/>\n'
+        '  <mutation species_name="LOSS" data_name="loss"/>\n'
+        '  <expression_level species_name="A" data_name="a_expr"/>\n'
+        '  <expression_level species_name="C" data_name="c_expr"/>\n'
+        '  <expression_level species_name="PUMP" value="0.7"/>\n'
+        '  <data species_name="proliferation" data_name="prolif" likelihood_function="normal"'
+        ' base_scale_sd_suffix="p"/>\n'
+        '  <data species_name="A" data_name="a_data" likelihood_function="truncated_normal"'
+        ' use_base="false" use_scale="false" scale_var_with_mean="false" sd="0.1"/>\n'
+        '  <data species_name="C" data_name="c_data" likelihood_function="studentt"'
+        ' data_is_inactive_form="true" expression="C" base="0.05" use_scale="false"'
+        ' sd="sd_c" weight="0.5" scale_var_with_mean="false"/>\n'
+        '  <data species_name="B" data_name="b_data" likelihood_function="truncated_t"'
+        ' use_base="false" use_scale="false" scale_var_with_mean="false" sd="0.2"/>\n'
+        "</experiment>\n</bcm_likelihood>\n")
+    return xml, {"exp1": data}
+
+
+def _fisa_incucyte_files(workdir, relative, nan_pair):
+    """tests/test_fisa.py:266-390's incucyte-sequential setup: the analytic
+    steady state of its chain gives the mixture table (mix.tsv)."""
+    import numpy as np
+
+    with open(os.path.join(workdir, "inet.xml"), "w") as f:
+        f.write(fisa_sbml(
+            [fisa_species("s1", "EGFR", "PROTEIN"), fisa_species("s2", "ERK", "PROTEIN"),
+             fisa_species("s3", "proliferation", "PHENOTYPE"),
+             fisa_species("s4", "apoptosis", "PHENOTYPE"),
+             fisa_species("s5", "drugX", "DRUG", "inhibit activity")],
+            [fisa_reaction("r1", "s1", "s2"), fisa_reaction("r2", "s2", "s3"),
+             fisa_reaction("r3", "s2", "s4", positive=False),
+             fisa_reaction("r4", "s5", "s2", positive=False)]))
+    egfr = np.array([0.5, 0.9])
+    concs = np.array([0.0, 0.4, 0.8])
+    tv = np.array([v for _, _, v in FISA_VARIABLES["incucyte"]])
+
+    def steady(e, c):
+        b_eg, b_ap, s_ee, s_ep, s_ea, mi = tv
+        erk = np.clip(s_ee * e, 0, 1)
+        sig = 1.0 - c * mi
+        return np.clip(s_ep * erk * sig, 0, 1), np.clip(b_ap - s_ea * erk * sig, 0, 1)
+
+    rows = []
+    for i in range(2):
+        base_p = steady(egfr[i], 0.0)[0] if relative else 0.0
+        for c in concs:
+            p, a = steady(egfr[i], c)
+            row = []
+            for dp in (0.0, 0.05, 0.0):
+                row += [p - base_p + dp, a - dp, 0.01, 0.002, 0.01]
+            rows.append(row + [0.6, 0.4, 0.0])
+    if nan_pair:
+        rows[0][5] = np.nan  # the second component's mean of (c1, conc 0)
+    with open(os.path.join(workdir, "mix.tsv"), "w") as f:
+        f.write("\n".join("\t".join(str(x) for x in r) for r in rows) + "\n")
+    group = {"cell_lines": np.array([b"c1", b"c2"]), "egfr_levels": egfr}
+    data_node = ('<data data_file_base="mix.tsv" type="relative" relative_reference="baseline"/>'
+                 if relative else '<data data_file_base="mix.tsv"/>')
+    baseline = ('<experiment name="baseline" model_file="inet.xml" data_file="idata.nc">'
+                '<condition species_name="EGFR" data_name="egfr_levels"/></experiment>'
+                if relative else "")
+    xml = ('<bcm_likelihood type="fISA">'
+           f"{baseline}"
+           '<experiment name="incu" type="incucyte_sequential" model_file="inet.xml"'
+           ' data_file="idata.nc">'
+           '<drug_range species_name="drugX" concentrations="0.0;0.4;0.8"/>'
+           '<condition species_name="EGFR" data_name="egfr_levels"/>'
+           f"{data_node}</experiment></bcm_likelihood>")
+    return xml, ({"baseline": group, "incu": group} if relative else {"incu": group})
+
+
+def fisa_files(workdir, config, feedback=True, relative=True, nan_pair=False,
+               multiroot_solves=10):
+    """Write a fISA configuration's SBML (and mixture table) and its
+    likelihood.xml into workdir; return the likelihood.xml's path and its
+    data groups, {experiment name: {dataset name: numpy array}} (what
+    data.nc would hold). `config` is "bistable" (bench.py bench_fisa:
+    multiroot_solves starts, the data at the low root), "network" (with
+    or without its feedback loop) or "incucyte" (absolute or relative to
+    a single-condition experiment, a NaN pair optional)."""
+    import numpy as np
+
+    os.makedirs(workdir, exist_ok=True)
+    if config == "bistable":
+        with open(os.path.join(workdir, "net.xml"), "w") as f:
+            f.write(FISA_BISTABLE_SBML)
+        xml = ('<bcm_likelihood type="fISA">\n'
+               '<experiment name="exp1" model_file="net.xml" data_file="data.nc"'
+               f' activation_limit="logistic" multiroot_solves="{multiroot_solves}">\n'
+               '  <data species_name="A" data_name="a_data" likelihood_function="normal"'
+               ' use_base="false" use_scale="false" scale_var_with_mean="false" sd="0.02"/>\n'
+               "</experiment>\n</bcm_likelihood>\n")
+        data = {"exp1": {"cell_lines": np.array([b"c1"]), "a_data": np.array([[0.057]])}}
+    elif config == "network":
+        xml, data = _fisa_network_files(workdir, feedback)
+    else:
+        xml, data = _fisa_incucyte_files(workdir, relative, nan_pair)
+    path = os.path.join(workdir, "likelihood.xml")
+    with open(path, "w") as f:
+        f.write(xml)
+    return path, data
+
+
+def fisa_varset(config):
+    from bcm3_tpu_torch import VariableSet
+
+    vs = VariableSet()
+    for name, logspace, _ in FISA_VARIABLES[config]:
+        vs.add_variable(name, logspace=logspace)
+    return vs
+
+
+def fisa_model(workdir, config, **options):
+    """A fISA configuration through the registry (`create_likelihood` on its
+    likelihood.xml, the data in memory) and its values."""
+    import numpy as np
+
+    from bcm3_tpu_torch.likelihoods import create_likelihood
+
+    path, data = fisa_files(workdir, config, **options)
+    lik = create_likelihood(path, fisa_varset(config), _data=data)
+    return lik, np.array([v for _, _, v in FISA_VARIABLES[config]])
+
+
+FISA_WIDTHS = (65536, 524288)  # bench.py:579 bench's batch, and eight times it
+FISA_REPS = 3
+FISA_CPU_ROWS = 256
+FISA_CONVERGED = 1e-10  # a kept solve's Newton residual at its root (float64)
+FISA_PT_SAMPLES = 20
+FISA_PT_PROFILE_SAMPLES = 2
+FISA_SAME_ROOT = 1e-2  # best-root activities this close pick the same root
+
+
+def fisa_bridge_folder(workdir):
+    """bench_fisa's network with a prior.xml (uniform within 25% of bench's
+    values) in one folder, for `rbridge.init` and SamplerPT; the folder,
+    its data groups (for `_data`) and bench's values."""
+    import numpy as np
+
+    folder = os.path.join(workdir, "fisa_bench")
+    _, data = fisa_files(folder, "bistable")
+    write_uniform_prior(os.path.join(folder, "prior.xml"),
+                        [(n, False, 0.75 * v, 1.25 * v) for n, _, v in FISA_VARIABLES["bistable"]])
+    return folder, data, np.array([v for _, _, v in FISA_VARIABLES["bistable"]])
+
+
+def phase_fisa(workdir, smi):
+    """bench_fisa's network (10 Sobol starts, float32) at FISA_WIDTHS rows
+    (bench's jitter 0.01): evals/s over FISA_REPS evaluations after a warm
+    one, device operations and busy time of one evaluation under the
+    profiler, idle share, host reads of one evaluation (sync debug "warn"),
+    peak memory."""
+    import torch
+
+    lik, values = fisa_model(os.path.join(workdir, "fisa"), "bistable")
+    net = lik.model.experiments[0].network
+    out = {}
+    for B in FISA_WIDTHS:
+        x = torch.as_tensor(bench_rows(values, B, jitter=FISA_JITTER), dtype=torch.float32,
+                            device=CARD)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        wall_ms, lp = timed_evaluations(lik, x, FISA_REPS)
+        peak = torch.cuda.max_memory_allocated() - held
+        finite = int(torch.isfinite(lp).sum())
+        _, reads = host_reads(lambda: lik.log_prob_batched(x))
+        busy_ms, ops, prof_s = device_busy(lambda: lik.log_prob_batched(x))
+        idle = 1.0 - busy_ms / wall_ms
+        out[B] = dict(evals_per_second=B / wall_ms * 1e3, ms=wall_ms, ops=ops, reads=reads,
+                      busy_ms=busy_ms, idle=idle, peak_gib=peak / 2**30)
+        log(f"fisa: {B} rows x {net.multiroot_solves} Sobol starts ({B * net.multiroot_solves} "
+            f"lanes), 20 Newton steps, float32: {wall_ms:.3f} ms an evaluation (host clock, "
+            f"synchronized, mean of {FISA_REPS} after a warm one) = {out[B]['evals_per_second']:.1f} "
+            f"evals/s; {finite}/{B} finite; {ops} device operations an evaluation, {reads} host "
+            f"reads; device busy {busy_ms:.3f} ms (profiled, {prof_s:.1f} s), idle share "
+            f"{idle:.4f}; peak memory {peak / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB "
+            f"held before; on {smi}")
+        assert finite == B and reads == 0
+        del x, lp
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fisa_rows_card_vs_cpu(name, lik, xs, smi):
+    """One fixture on the rows xs: the card's float64 against the CPU's
+    within F64_RTOL on every row, equal -inf sets (the rows whose kept solve
+    the 20 Newton steps left short of its root, a residual above
+    FISA_CONVERGED on the CPU, counted: there one ulp moves the iterate);
+    the card's float32 against the CPU's float64 on the rows where both and
+    the CPU's float32 keep the same root per cell line, within ten times the
+    CPU's own float32 error there; rows whose best root differs counted."""
+    import numpy as np
+    import torch
+
+    rows = torch.as_tensor(xs)
+    cpu = lik.log_prob_batched(rows).numpy()
+    card = lik.log_prob_batched(rows.to(CARD)).cpu().numpy()
+    fin = np.isfinite(cpu)
+    assert np.array_equal(fin, np.isfinite(card)), f"{name}: -inf rows differ"
+    loose = lik.model.newton_residual(rows).numpy() > FISA_CONVERGED
+    rel = np.zeros_like(cpu)
+    rel[fin] = np.abs(card[fin] - cpu[fin]) / np.abs(cpu[fin])
+    strict, slack = rel[fin & ~loose].max(initial=0.0), rel[fin & loose].max(initial=0.0)
+    log(f"fisa card vs CPU {name}, float64, {len(xs)} rows: {int(fin.sum())} finite; max rel "
+        f"err {strict:.3e} on {int((fin & ~loose).sum())} converged rows, {slack:.3e} on "
+        f"{int((fin & loose).sum())} whose kept solve stopped short of its root (limit "
+        f"{F64_RTOL} on all); on {smi}")
+    assert max(strict, slack) <= F64_RTOL
+
+    def roots(x):
+        tv = lik.model._transform(x)
+        return torch.cat([exp.modeled_activities(tv).flatten(1) for exp in lik.model.experiments],
+                         dim=1).double().cpu().numpy()
+
+    cpu32 = lik.log_prob_batched(rows.float()).double().numpy()
+    card32 = lik.log_prob_batched(rows.to(CARD, torch.float32)).double().cpu().numpy()
+    r64, r32, rc32 = roots(rows), roots(rows.float()), roots(rows.to(CARD, torch.float32))
+    same = ((np.abs(r32 - r64).max(axis=1) < FISA_SAME_ROOT)
+            & (np.abs(rc32 - r64).max(axis=1) < FISA_SAME_ROOT) & fin)
+    own = float((np.abs(cpu32[same] - cpu[same]) / np.abs(cpu[same])).max(initial=0.0))
+    rel32 = float((np.abs(card32[same] - cpu[same]) / np.abs(cpu[same])).max(initial=0.0))
+    log(f"fisa card vs CPU {name}: card float32 vs CPU float64 max rel err {rel32:.3e} on "
+        f"{int(same.sum())} rows with the same best roots (limit {10 * own:.3e}, ten times the "
+        f"CPU's own float32 error {own:.3e}); {int((fin & ~same).sum())} rows keep another root "
+        f"in float32 (counted, not asserted)")
+    assert same.sum() >= len(xs) // 2 and rel32 <= max(10 * own, 1e-6)
+    return dict(rel64=float(strict), unconverged=int((fin & loose).sum()), rel32=rel32,
+                own32=own, other_root=int((fin & ~same).sum()))
+
+
+def phase_fisa_card_vs_cpu(workdir, smi):
+    """The three fISA fixtures (bench_fisa's bistable network; the feedback
+    network with every drug effect, conditions and expression levels; the
+    incucyte-sequential experiment relative to a single-condition one) on
+    FISA_CPU_ROWS rows of their values with jitter 0.01."""
+    out = {}
+    for config in ("bistable", "network", "incucyte"):
+        lik, values = fisa_model(os.path.join(workdir, f"fisa_{config}"), config)
+        xs = bench_rows(values, FISA_CPU_ROWS, seed=1, jitter=FISA_JITTER)
+        out[config] = _fisa_rows_card_vs_cpu(config, lik, xs, smi)
+    return out
+
+
+def phase_fisa_pt(workdir, smi):
+    """SamplerPT over the registry's fISA at bench_fisa's configuration
+    (prior uniform within 25% of bench's values), 8 x 8,192 chains,
+    FISA_PT_SAMPLES samples thinned by 5, float32: one run, its wall; the
+    profile over FISA_PT_PROFILE_SAMPLES iterations of a second sampler."""
+    from bcm3_tpu_torch import Prior, VariableSet
+    from bcm3_tpu_torch.likelihoods import create_likelihood
+
+    folder, data, _ = fisa_bridge_folder(workdir)
+    prior_path = os.path.join(folder, "prior.xml")
+    varset = VariableSet.from_xml(prior_path)
+    lik = create_likelihood(os.path.join(folder, "likelihood.xml"), varset, _data=data)
+    res = pt_slice("fisa_pt", Prior.from_xml(prior_path, varset), lik, ENSEMBLES["one"],
+                   FISA_PT_SAMPLES, profile_samples=FISA_PT_PROFILE_SAMPLES, warm=False)
+    log(f"fisa_pt: {res['wall_ms'] / 1e3:.4f} s an iteration = "
+        f"{NUM_CHAINS * ENSEMBLES['one'] / res['wall_ms'] * 1e3:.1f} evals/s of the iterations; "
+        f"on {smi}")
+    return res["evals_per_second"]
+
+
+def phase_rbridge(workdir, smi):
+    """rbridge.init on the card (its default) against the same calls on a
+    handle with device="cpu": the in-repo banana fixture (no data file) and
+    bench_fisa's network through `_data`; the variable names, the
+    log-likelihood and log-prior of 8 rows, and every fISA accessor, to
+    float64 rounding (F64_RTOL)."""
+    import numpy as np
+
+    from bcm3_tpu_torch import rbridge
+
+    folder, data, values = fisa_bridge_folder(workdir)
+    rng = np.random.default_rng(3)
+    cases = {"banana": (os.path.join(FIXTURES, "banana"), {},
+                        rng.uniform([-4.0, -4.0], [4.0, 14.0], size=(8, 2))),
+             "fisa": (folder, {"_data": data}, bench_rows(values, 8, seed=3,
+                                                          jitter=FISA_JITTER))}
+    worst = {}
+    for name, (path, opts, rows) in cases.items():
+        card, cpu = rbridge.init(path, **opts), rbridge.init(path, device="cpu", **opts)
+        try:
+            assert rbridge._get(card)["device"].type == "cuda"
+            assert rbridge.get_variable_names(card) == rbridge.get_variable_names(cpu)
+            pairs = []
+            for v in rows:
+                for fn in (rbridge.get_log_likelihood, rbridge.get_log_prior):
+                    pairs.append((fn(card, v), fn(cpu, v)))
+                if name == "fisa":
+                    assert (rbridge.fISA_get_num_experiments(card)
+                            == rbridge.fISA_get_num_data(card, 0)
+                            == rbridge.fISA_get_num_cell_lines(card, 0) == 1)
+                    assert rbridge.fISA_get_cell_line_names(card, 0) == ["c1"]
+                    assert np.array_equal(rbridge.fISA_get_observed_data(card, 0, 0),
+                                          rbridge.fISA_get_observed_data(cpu, 0, 0))
+                    for fn, args in ((rbridge.fISA_get_modeled_activities, (0,)),
+                                     (rbridge.fISA_get_modeled_data, (0, 0))):
+                        pairs.append((fn(card, *args, v), fn(cpu, *args, v)))
+            rel = max(float(np.max(np.abs(np.asarray(a) - np.asarray(b))
+                                   / np.maximum(np.abs(np.asarray(b)), 1e-300)))
+                      for a, b in pairs)
+            worst[name] = rel
+            log(f"rbridge {name}: {len(pairs)} accessor results of {len(rows)} rows on the card "
+                f"against a CPU handle: max rel err {rel:.3e} (limit {F64_RTOL}); on {smi}")
+            assert rel <= F64_RTOL
+        finally:
+            rbridge.cleanup(card)
+            rbridge.cleanup(cpu)
+    return worst
+
+
 def main(workdir):
     phase_times = {}
 
@@ -3879,6 +4331,15 @@ def main(workdir):
                           ("cellpop_matched", phase_cellpop_matched)):
         evals[config] = main_path(config, (), phase, workdir, smi)["evals_per_second"]
     evals["cellpop_pt"] = main_path("cellpop_pt", (), phase_cellpop_pt, workdir, smi)
+    # fISA and the R bridge: no kernel serves them (XLA and the host in the
+    # JAX package), and none may launch
+    fisa = main_path("fisa", (), phase_fisa, workdir, smi)
+    evals.update({f"fisa_{B}": v["evals_per_second"] for B, v in fisa.items()})
+    main_path("fisa_card_vs_cpu", (), phase_fisa_card_vs_cpu, workdir, smi)
+    evals["fisa_pt"] = main_path("fisa_pt", (), phase_fisa_pt, workdir, smi)
+    main_path("rbridge", (), phase_rbridge, workdir, smi)
+    for name in ("fisa", "fisa_card_vs_cpu", "fisa_pt", "rbridge"):
+        assert not any(paths[name].values()), f"{name} launched a kernel: {paths[name]}"
     launches = {k: sum(p[k] for p in paths.values()) for k in counters}
     log(f"main-path launches: {launches}; per slice {json.dumps(paths)}")
 

@@ -20,7 +20,8 @@ likelihood (pharmaco_population), the single-patient PK likelihood
 (through B1 and B2 at P = 1), the ODE template and the cell likelihoods
 (incucyte_population with each of its four DDE solvers, whose solve makes
 no host read; mitosis_time_estimation with the native matching against
-scipy; cell_cycle_marker).
+scipy; cell_cycle_marker), and so do fISA (whose evaluation makes no host
+read) and the R bridge, which runs on the card unless asked for the CPU.
 
 Each kernel is held to its plain PyTorch version on the same inputs:
 - B1: rtol 1e-5 in float32, 1e-12 in float64;
@@ -945,3 +946,70 @@ def test_cell_population_on_the_card_matches_cpu(cuda, tmp_path, config):
     xs[5, 0] = float("nan")  # a failed integration: -inf
     cpu = _card_and_cpu(lik, xs, cuda, cs.CELLPOP_SOLVER_RTOL, 1e-4)
     assert torch.isneginf(cpu[5]) and torch.isfinite(cpu[:5]).all()
+
+
+@pytest.mark.parametrize("config", ["bistable", "network", "incucyte"])
+def test_fisa_on_the_card_matches_cpu(cuda, tmp_path, config):
+    """fISA (bench_fisa's bistable network, the feedback network with every
+    drug effect, the incucyte-sequential experiment relative to a
+    single-condition one) on 64 rows of its values with jitter 0.01: the
+    card's float64 against the CPU's within 1e-10 and equal -inf sets; the
+    solves make no host read, nor does a whole evaluation but where a
+    truncated-t data part is scored (the network's: the incomplete beta
+    function checks its convergence on the host)."""
+    cs = _chip_smoke()
+    lik, values = cs.fisa_model(str(tmp_path), config)
+    xs = torch.as_tensor(cs.bench_rows(values, 64, jitter=cs.FISA_JITTER))
+    cpu = lik.log_prob_batched(xs)
+    card = lik.log_prob_batched(xs.to(cuda))
+    assert card.device.type == "cuda" and card.dtype == torch.float64
+    torch.testing.assert_close(card.cpu(), cpu, rtol=1e-10, atol=0.0, equal_nan=True)
+    assert torch.isfinite(cpu).all()
+    x = xs.to(cuda, torch.float32)
+    model = lik.model
+    exp = model.experiments[0]
+    tv = model._transform(x)
+    preset, expression = exp._prepare(tv)
+    truncated_t = any(d.likelihood_fn == "truncated_t" for e in model.experiments
+                      for d in e.data_parts)
+    lik.log_prob_batched(x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        exp.network.calculate_multiroot(tv[:, None, :], expression, preset)
+        exp.network.calculate(tv[:, None, :], expression, preset)
+        if not truncated_t:
+            lik.log_prob_batched(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert truncated_t == (config == "network")
+
+
+def test_rbridge_on_the_card(cuda, tmp_path):
+    """rbridge.init runs on the card by default; its likelihood, prior and
+    fISA accessors equal a CPU handle's on bench_fisa's network (data
+    through `_data`) and on the banana fixture."""
+    import os
+
+    from bcm3_tpu_torch import rbridge
+
+    cs = _chip_smoke()
+    folder, data, values = cs.fisa_bridge_folder(str(tmp_path))
+    for path, opts, vals in ((folder, {"_data": data}, values),
+                             (os.path.join(cs.FIXTURES, "banana"), {}, np.array([0.3, 1.2]))):
+        h, hc = rbridge.init(path, **opts), rbridge.init(path, device="cpu", **opts)
+        try:
+            assert rbridge._get(h)["device"].type == "cuda"
+            assert rbridge.get_variable_names(h) == rbridge.get_variable_names(hc)
+            for fn in (rbridge.get_log_likelihood, rbridge.get_log_prior):
+                np.testing.assert_allclose(fn(h, vals), fn(hc, vals), rtol=1e-10)
+            if opts:
+                np.testing.assert_allclose(rbridge.fISA_get_modeled_activities(h, 0, vals),
+                                           rbridge.fISA_get_modeled_activities(hc, 0, vals),
+                                           rtol=1e-10)
+                np.testing.assert_allclose(rbridge.fISA_get_modeled_data(h, 0, 0, vals),
+                                           rbridge.fISA_get_modeled_data(hc, 0, 0, vals),
+                                           rtol=1e-10)
+        finally:
+            rbridge.cleanup(h)
+            rbridge.cleanup(hc)

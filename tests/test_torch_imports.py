@@ -41,6 +41,8 @@ def _run(code):
         # the card's machine has no h5py: only the HDF5 readers/writers may
         # import it, and only when called
         ("h5py",),
+        # nor matplotlib: only plots.py's drawing functions import it
+        ("matplotlib",),
     ],
 )
 def test_port_imports_without(forbidden):
@@ -90,15 +92,18 @@ def test_wrappers_never_fall_back_off_cpu(wrapper):
 
 
 def test_registry_builds_cell_population_and_refuses_fisa(tmp_path):
-    """cell_population is ported (built from its likelihood.xml, its data
-    in memory); fISA still raises NotImplementedError naming ROADMAP A12."""
+    """cell_population and, since fISA was ported, fISA too: the registry
+    builds both from their likelihood.xml with the data in memory (the
+    name is the test's from before fISA was ported)."""
     import chip_smoke
     from bcm3_tpu_torch.cellpop.likelihood import CellPopulationLikelihood
-    from bcm3_tpu_torch.likelihoods import create_likelihood
-    from bcm3_tpu_torch.model.variables import VariableSet
+    from bcm3_tpu_torch.fisa import FISALikelihood
 
     prior, lik = chip_smoke.cellpop_model(str(tmp_path), "cellpop", 4, 2)
     assert lik.name == "cell_population" and isinstance(lik.model, CellPopulationLikelihood)
     assert lik.model.experiments[0].sparse_solver is not None
-    with pytest.raises(NotImplementedError, match="A12"):
-        create_likelihood("fISA", VariableSet())
+    lik, values = chip_smoke.fisa_model(str(tmp_path / "fisa"), "bistable")
+    assert lik.name == "fISA" and isinstance(lik.model, FISALikelihood)
+    assert lik.model.experiments[0].network.multiroot_solves == 10
+    lp = lik.log_prob_batched(torch.as_tensor(values)[None])
+    assert lp.shape == (1,) and torch.isfinite(lp).all()

@@ -140,10 +140,13 @@ def test_unported_pk_types_raise(tmp_path, monkeypatch, pk_type):
 
 
 def test_unported_likelihood_type_raises(tmp_path):
+    """Every likelihood type of the JAX package is ported: a type neither
+    package knows raises ValueError (the name is the test's from before
+    fISA was ported)."""
     path = os.path.join(tmp_path, "lik.xml")
     with open(path, "w") as f:
-        f.write('<bcm_likelihood type="fISA"/>')
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        f.write('<bcm_likelihood type="no_such_type"/>')
+    with pytest.raises(ValueError, match="Unknown likelihood type 'no_such_type'"):
         create_likelihood(path, VariableSet())
 
 
