@@ -16,6 +16,14 @@ version: a checkpoint of another version, or one written by the JAX
 package (a pickle, whose arrays this package cannot load without JAX),
 is refused with a message that names it. The write is atomic (a
 temporary file in the same directory, then ``os.replace``).
+
+A sharded run (sampler/pt.py under shard_over_devices) passes its rank's
+`ChainBlock`: the per-chain arrays are gathered from every rank, the
+primary rank writes the one complete file while the others wait at a
+barrier (the JAX package gathers its globally sharded leaves the same
+way, bcm3_tpu/io/checkpoint.py:25-37), and on restore each rank keeps its
+rows. The file is the unsharded run's, so either kind of run resumes from
+either kind's checkpoint.
 """
 
 from __future__ import annotations
@@ -33,16 +41,24 @@ from bcm3_tpu_torch import convert
 FORMAT = "bcm3_tpu_torch.checkpoint"
 CHECKPOINT_VERSION = 1
 
+# the fields with a row per chain (the others hold one value, or one per
+# ladder position, and are the same on every rank)
+STATE_CHAIN_FIELDS = convert.STATE_FIELDS[:-2]
+PROPOSAL_CHAIN_FIELDS = ("scales", "acc_ema", "selected")
+
 
 def _np(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
-def _proposal_arrays(prefix: str, proposals, arrays: Dict[str, np.ndarray]) -> List[dict]:
+def _proposal_arrays(
+    prefix: str, proposals, arrays: Dict[str, np.ndarray], rows
+) -> List[dict]:
     meta = []
     for i, p in enumerate(proposals):
         for f in convert.PROPOSAL_FIELDS:
-            arrays[f"{prefix}.{i}.{f}"] = _np(getattr(p, f))
+            v = getattr(p, f)
+            arrays[f"{prefix}.{i}.{f}"] = _np(rows(v) if f in PROPOSAL_CHAIN_FIELDS else v)
         meta.append({m: getattr(p, m) for m in convert.PROPOSAL_META})
     return meta
 
@@ -60,16 +76,27 @@ def save_checkpoint(
     generators: Dict[str, torch.Generator],
     assigner=None,
     extra: Optional[Dict[str, Any]] = None,
+    block=None,
 ):
     """Atomically write a checkpoint (tmp file + rename).
 
     `proposals` are those the next run() starts from, `live_proposals`
     those of the running segment (their per-chain scales, acceptance
     EMAs and last components); `generators` are saved by name with
-    get_state(); `extra` must be JSON-serializable."""
+    get_state(); `extra` must be JSON-serializable. With `block` (a
+    sharded run's ChainBlock; every rank calls this) the per-chain rows
+    are gathered and only the primary rank writes."""
+
+    def rows(t):
+        if block is None:
+            return t
+        from bcm3_tpu_torch.parallel import collectives
+
+        return collectives.all_gather_rows(t[block.own])
+
     arrays: Dict[str, np.ndarray] = {}
-    for f in convert.STATE_FIELDS[:-2]:
-        arrays[f"state.{f}"] = _np(getattr(state, f))
+    for f in STATE_CHAIN_FIELDS:
+        arrays[f"state.{f}"] = _np(rows(getattr(state, f)))
     meta = {
         "format": FORMAT,
         "version": CHECKPOINT_VERSION,
@@ -79,8 +106,8 @@ def save_checkpoint(
         "hist_adds": int(state.hist_adds),
         "swap_parity": int(state.swap_parity),
         "num_blocks": len(blocks),
-        "proposals": _proposal_arrays("proposals", proposals, arrays),
-        "live_proposals": _proposal_arrays("live_proposals", live_proposals, arrays),
+        "proposals": _proposal_arrays("proposals", proposals, arrays, rows),
+        "live_proposals": _proposal_arrays("live_proposals", live_proposals, arrays, rows),
         "assigner": None,
         "generators": sorted(generators),
         "extra": extra or {},
@@ -94,7 +121,17 @@ def save_checkpoint(
     for name, gen in generators.items():
         arrays[f"generator.{name}"] = _np(gen.get_state())
     arrays["meta"] = np.array(json.dumps(meta))
+    if block is None:
+        _write(path, arrays)
+        return
+    from bcm3_tpu_torch.parallel import collectives, distributed
 
+    if distributed.is_primary():
+        _write(path, arrays)
+    collectives.barrier()  # the file is whole before any rank goes on
+
+
+def _write(path: str, arrays: Dict[str, np.ndarray]):
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".ckpt.tmp")
@@ -119,11 +156,12 @@ def _refuse_foreign(path: str, head: bytes):
     raise ValueError(f"{path} is not a {FORMAT} file")
 
 
-def load_checkpoint(path: str, device, dtype: torch.dtype) -> Dict[str, Any]:
+def load_checkpoint(path: str, device, dtype: torch.dtype, block=None) -> Dict[str, Any]:
     """Read a checkpoint back: the state (the history with the shape it was
-    saved with), proposals and assigner as tensors on `device` (real fields
-    in `dtype`), the blocks, the counters, the generator states (uint8
-    tensors for set_state) and `extra`."""
+    saved with, in "history_shape"), proposals and assigner as tensors on
+    `device` (real fields in `dtype`), the blocks, the counters, the
+    generator states (uint8 tensors for set_state) and `extra`. With
+    `block` the per-chain rows are this rank's (ChainBlock.cover)."""
     with open(path, "rb") as f:
         head = f.read(4)
     if not head.startswith(b"PK"):
@@ -144,11 +182,19 @@ def load_checkpoint(path: str, device, dtype: torch.dtype) -> Dict[str, Any]:
 
     state_arrays = dict(group("state"), hist_adds=meta["hist_adds"],
                         swap_parity=meta["swap_parity"])
-    state = convert.pt_state_from_arrays(state_arrays, device, dtype)
+    history_shape = tuple(state_arrays["history"].shape)
+
+    def rows(arrays):
+        if block is None:
+            return arrays
+        return {k: block.cover(v) if k in STATE_CHAIN_FIELDS + PROPOSAL_CHAIN_FIELDS else v
+                for k, v in arrays.items()}
+
+    state = convert.pt_state_from_arrays(rows(state_arrays), device, dtype)
 
     def proposals(prefix):
         return [
-            convert.block_proposal_from_arrays(group(f"{prefix}.{i}"), m, device, dtype)
+            convert.block_proposal_from_arrays(rows(group(f"{prefix}.{i}")), m, device, dtype)
             for i, m in enumerate(meta[prefix])
         ]
 
@@ -157,6 +203,7 @@ def load_checkpoint(path: str, device, dtype: torch.dtype) -> Dict[str, Any]:
         assigner = convert.cluster_assigner_from_arrays(group("assigner"), meta["assigner"], device)
     return {
         "state": state,
+        "history_shape": history_shape,
         "proposals": proposals("proposals"),
         "live_proposals": proposals("live_proposals"),
         "blocks": [arrays[f"blocks.{i}"] for i in range(meta["num_blocks"])],

@@ -47,13 +47,35 @@ history are kept in `adaptation_dumps` for sampler_adaptation.nc. A
 `progress` object (io/progress.py) attached by the caller is told each
 emitted chunk.
 
-Not ported yet, and refused with NotImplementedError: sharding over
-devices (ROADMAP A13).
+With `shard_over_devices` in an initialized torch.distributed group
+(parallel/distributed.py) the population is split over the ranks, one
+process a device (the JAX package's chain mesh, bcm3_tpu/sampler/pt.py:
+1395-1414): rank r keeps the contiguous block of chains that
+parallel/mesh.py gives it, evaluates only its own rows, and computes
+exactly what the unsharded run computes:
+- every rank draws the whole population's random numbers and keeps its
+  rows (as the JAX package's global key over a sharded array does);
+- an iteration issues no collective when every ladder lies whole on one
+  rank; where a rank boundary splits a ladder, the rank keeps the
+  covering ladders and fills their other ranks' rows point to point
+  before each exchange;
+- at a boundary the downsampled and the T=1 history are gathered in the
+  unsharded order, every rank fits the same proposals with the same host
+  RNG and keeps its rows of them, and a digest of each rank's proposals
+  and random streams must agree;
+- statistics and counters cover the whole world; run() returns each
+  rank's own ensembles ("ensemble_shard") where its ladders are whole,
+  else the gathered population; sample handlers and the progress line
+  run on the primary rank, and the handlers receive the whole population
+  (gathered for them under per-rank emission); the primary writes one
+  complete checkpoint, which sharded and unsharded runs resume alike.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import logging
 import math
 import os
@@ -66,6 +88,8 @@ import torch
 
 from bcm3_tpu_torch.likelihoods import Likelihood
 from bcm3_tpu_torch.model.prior import Prior
+from bcm3_tpu_torch.parallel import collectives, distributed
+from bcm3_tpu_torch.parallel.mesh import ChainBlock
 from bcm3_tpu_torch.sampler import blocking as blocking_mod
 from bcm3_tpu_torch.sampler import proposal as prop_mod
 from bcm3_tpu_torch.sampler import spectral
@@ -138,8 +162,17 @@ class PTConfig:
     # keep each boundary's T=1 mixtures and history in
     # SamplerPT.adaptation_dumps (reference: SamplerPTChain.cpp:149-166)
     output_proposal_adaptation: bool = False
-    # a JAX-package option that the port refuses until it is ported
+    # split the chain population over the ranks of the initialized
+    # torch.distributed group, one process a device; the total chain count
+    # (num_chains * num_ensembles) must be divisible by the world size.
+    # Without a group the run is unsharded.
     shard_over_devices: bool = False
+    # kept for compatibility with the JAX package's PTConfig, where it is
+    # the chain mesh's device count (None = all); it selects nothing here.
+    # One process drives one device, so the launch sets the count: None
+    # and every value of at least the world size shard over the whole
+    # world, and a value below it is refused
+    mesh_devices: Optional[int] = None
 
 
 def temperature_ladder(
@@ -213,7 +246,7 @@ class SamplerPT:
         self.sample_handlers = list(sample_handlers or [])
         self.device = torch.device(config.device)
         self.dtype = config.dtype
-        self._refuse_unported(config)
+        self._check_options(config)
         # the legacy alias of reference example configs; the MFA fit feeds
         # the same Gaussian-mixture proposal (bcm3_tpu/sampler/pt.py:276-304)
         self._use_mtfa_fit = config.proposal_type == "gaussian_mixture_fit_in_r"
@@ -233,7 +266,22 @@ class SamplerPT:
             C, config.temperature_schedule_power, config.temperature_schedule_max
         )
         self.temperatures = np.tile(self.ladder, E)
-        self._temps = torch.as_tensor(self.temperatures, dtype=self.dtype, device=self.device)
+        # the chain rows this process holds: the whole population, or under
+        # shard_over_devices its rank's block (with the covering ladders)
+        self._block = self._partition(config)
+        self._rows = self.num_chains if self._block is None else self._block.rows
+        # where a rank boundary splits a ladder: the point-to-point plan of
+        # the ghost rows that an exchange reads
+        self._halo = None
+        if self._block is not None and not self._block.whole:
+            self._halo = self._block.halo_plan()
+        # run() returns this rank's own ensembles where its ladders are whole
+        self._emit_shard = None
+        if self._block is not None and self._block.whole:
+            self._emit_shard = self._block.ensembles
+        self._temps = torch.as_tensor(
+            self._cover(self.temperatures), dtype=self.dtype, device=self.device
+        )
         self._t0_mask = self._temps == 0.0
         self._emit_L = 1 if (config.emit_fixed_only and C > 1) else C
         self.emit_ladder = self.ladder[C - self._emit_L:]
@@ -282,6 +330,8 @@ class SamplerPT:
         self.progress = None
 
         seed = config.seed if config.seed != 0 else int(time.time_ns() % (2**31))
+        if config.seed == 0 and self._block is not None:
+            seed = collectives.broadcast_object(seed)  # one stream for every rank
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         # the adaptation's host stream, seeded as the JAX package seeds its own
@@ -294,10 +344,7 @@ class SamplerPT:
         self.total_evaluations = 0
 
     @staticmethod
-    def _refuse_unported(cfg: PTConfig):
-        def refuse(what, item):
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
+    def _check_options(cfg: PTConfig):
         if cfg.proposal_type not in (
             "gaussian_mixture",
             "parametric_mixture",
@@ -313,8 +360,44 @@ class SamplerPT:
             raise ValueError(f"Unknown swapping scheme '{cfg.swapping_scheme}'")
         if cfg.gmm_fit_backend not in ("auto", "host", "device"):
             raise ValueError(f"Unknown gmm_fit_backend '{cfg.gmm_fit_backend}'")
-        if cfg.shard_over_devices:
-            refuse("shard_over_devices", "A13")
+
+    def _partition(self, cfg: PTConfig) -> Optional[ChainBlock]:
+        """This rank's block of the population under shard_over_devices in
+        an initialized process group (even a group of one), else None: the
+        whole population here, as the JAX package runs unsharded on one
+        device (bcm3_tpu/sampler/pt.py:1395)."""
+        if not cfg.shard_over_devices:
+            return None
+        if not distributed.initialized():
+            logger.info("shard_over_devices: no process group is initialized, running unsharded")
+            return None
+        world = distributed.world()
+        if cfg.mesh_devices is not None and cfg.mesh_devices < world:
+            raise ValueError(
+                f"mesh_devices={cfg.mesh_devices} is below the world size {world}: one "
+                "process drives one device, so the launch sets the device count"
+            )
+        block = ChainBlock(self.num_chains, self.ladder_size, distributed.rank(), world)
+        logger.info(
+            "Chain population sharded over %d ranks: rank %d owns chains [%d, %d)",
+            world, block.rank, block.c0, block.c1,
+        )
+        return block
+
+    def _cover(self, t):
+        """This process's rows of a tensor or array over the whole population."""
+        return t if self._block is None else self._block.cover(t)
+
+    def _own(self, t):
+        """This rank's own rows of a tensor over this process's rows."""
+        return t if self._block is None else t[self._block.own]
+
+    def _gather(self, t):
+        """The whole population's values of a per-chain tensor held on this
+        process's rows, in chain order (the JAX package's `_to_host`)."""
+        if self._block is None:
+            return t
+        return collectives.all_gather_rows(self._own(t))
 
     @property
     def expected_emitted_samples(self) -> int:
@@ -359,7 +442,7 @@ class SamplerPT:
         return [
             prop_mod.build_block_proposal(
                 [self._fallback_gmm(block)] * self.ladder_size,
-                self.num_chains,
+                self._rows,
                 len(block),
                 self.dtype,
                 self.device,
@@ -384,6 +467,20 @@ class SamplerPT:
         llh = torch.where(torch.isnan(llh), _NEG_INF, llh)
         return lprior.to(self.dtype), llh.to(self.dtype)
 
+    def _evaluate_rows(self, x):
+        """`_evaluate` of this rank's own rows of x (this process's rows);
+        the ghost rows of a split ladder, another rank's, score -inf and are
+        never accepted here."""
+        b = self._block
+        if b is None or b.whole:
+            return self._evaluate(x)
+        lprior, llh = self._evaluate(x[b.own])
+        front, back = (
+            torch.full((n,), _NEG_INF, dtype=self.dtype, device=self.device)
+            for n in (b.c0 - b.a0, b.a1 - b.c1)
+        )
+        return torch.cat([front, lprior, back]), torch.cat([front, llh, back])
+
     def _lpp(self, lprior, llh):
         """Power posterior with the reference's T=0 convention
         (reference: SamplerPTChain.cpp:231-237)."""
@@ -396,17 +493,25 @@ class SamplerPT:
         """The random numbers of one iteration, from the sampler's generator.
         Under a stochastic swap scheme the exchange-or-mutate uniform comes
         first, from the CPU choice generator, and only the chosen move's
-        numbers are drawn."""
+        numbers are drawn.
+
+        Sharded, a rank draws the whole population's numbers, as every rank
+        does, and keeps those of its rows: the draws, and with them the
+        run, are the unsharded run's bit for bit (the JAX package draws
+        from one global key over a sharded array). The redundant draws cost
+        microseconds at bench width; a stream per ensemble would avoid them
+        (a later speed item)."""
         g, dt, dev = self.generator, self.dtype, self.device
         C, L, cfg = self.num_chains, self.ladder_size, self.config
+        cover = self._cover
 
         def rand(*shape):
-            return torch.rand(shape, generator=g, dtype=dt, device=dev)
+            return cover(torch.rand(shape, generator=g, dtype=dt, device=dev))
 
         def mutate_draws():
             tiny = torch.finfo(dt).tiny
             blocks = []
-            prior = self.prior.sample(g, (C,), dt)
+            prior = cover(self.prior.sample(g, (C,), dt))
             for block, prop in zip(self.blocks, proposals):
                 u_scale = rand(C)
                 gumbel = None
@@ -414,11 +519,11 @@ class SamplerPT:
                     gumbel = -torch.log(
                         -torch.log(torch.clamp(rand(C, prop.max_components), min=tiny))
                     )
-                z = torch.randn((C, len(block)), generator=g, dtype=dt, device=dev)
+                z = cover(torch.randn((C, len(block)), generator=g, dtype=dt, device=dev))
                 gamma = None
                 if prop.t_dof > 0.0:
                     shape = torch.full((C,), 0.5 * prop.t_dof, dtype=dt, device=dev)
-                    gamma = sample_standard_gamma(shape, g)
+                    gamma = cover(sample_standard_gamma(shape, g))
                 blocks.append(BlockDraws(u_scale, gumbel, z, rand(C), gamma))
             return MutateDraws(prior, blocks)
 
@@ -429,6 +534,9 @@ class SamplerPT:
                 if cfg.swapping_scheme == "stochastic_random":
                     E = self.num_ensembles
                     pair = torch.randint(0, max(L - 1, 1), (E,), generator=g, device=dev)
+                    if self._block is not None:
+                        e0, ne = self._block.ensembles
+                        pair = pair[e0 : e0 + ne]
                 return IterationDraws(rand(C), choice_u=choice_u, pair=pair)
             return IterationDraws(None, [mutate_draws()], choice_u=choice_u)
         exchange_u = rand(C) if L > 1 else None
@@ -462,9 +570,11 @@ class SamplerPT:
 
     def _mutate(self, state: PTState, proposals, draws: MutateDraws):
         """One mutate move for the whole chain population
-        (reference: SamplerPTChain.cpp MutateMove:217-313)."""
-        C = self.num_chains
-        E, L = self.num_ensembles, self.ladder_size
+        (reference: SamplerPTChain.cpp MutateMove:217-313), over this
+        process's rows."""
+        L = self.ladder_size
+        C = state.x.shape[0]
+        E = C // L
         t0 = self._t0_mask
         x, lprior, llh = state.x, state.lprior, state.llh
         att_mut, acc_mut = state.att_mut, state.acc_mut
@@ -515,7 +625,7 @@ class SamplerPT:
                 x_new[:, r] = 1.0 - x_new[:, s:r].sum(dim=1)
 
             # 3. evaluate
-            new_lprior, new_llh = self._evaluate(x_new)
+            new_lprior, new_llh = self._evaluate_rows(x_new)
             new_lpp = self._lpp(new_lprior, new_llh)
             cur_lpp = self._lpp(lprior, llh)
 
@@ -562,8 +672,18 @@ class SamplerPT:
         ExchangeMove:328-381). u: (C,) uniforms. Pairs form only within
         each ensemble's own ladder: the even/odd pairs of the current
         parity, or under stochastic_random the one pair (pair[e], pair[e]
-        + 1) of each ensemble, pair: (E,)."""
-        L, E, total = self.ladder_size, self.num_ensembles, self.num_chains
+        + 1) of each ensemble, pair: (E,). Sharded, over this process's
+        rows: where a rank boundary splits a ladder, the rows of its other
+        ranks that this rank's pairs read come first, point to point (the
+        JAX package's collective-permute); with whole ladders no collective
+        runs."""
+        if self._halo is not None:
+            x, lprior, llh = collectives.exchange_boundary_rows(
+                [state.x, state.lprior, state.llh], self._halo
+            )
+            state = dataclasses.replace(state, x=x, lprior=lprior, llh=llh)
+        L, total = self.ladder_size, state.x.shape[0]
+        E = total // L
         random_pair = self.config.swapping_scheme == "stochastic_random"
         temps = self._temps
         idx = torch.arange(total, device=self.device)
@@ -646,7 +766,7 @@ class SamplerPT:
         for _ in range(n_emit):
             for _ in range(self.config.use_every_nth):
                 state, proposals = self._iteration(state, proposals, self.draw(proposals))
-            x, lp, ll = state.x, state.lprior, state.llh
+            x, lp, ll = self._emitted(state)
             if Le != L:
                 # fixed-temperature rows only (reference: SamplerPT.cpp:321-330)
                 x = x.reshape(-1, L, x.shape[-1])[:, L - 1]
@@ -664,21 +784,39 @@ class SamplerPT:
 
         return state, proposals, (host(xs), host(lps), host(lls))
 
+    def _emitted(self, state: PTState):
+        """The (x, lprior, llh) rows that run() emits: this process's rows
+        (all of them, or a rank's whole ladders), or where a rank boundary
+        splits a ladder the whole population's, gathered in one call (as
+        the JAX package gathers then, bcm3_tpu/sampler/pt.py:1512-1515)."""
+        if self._halo is None:
+            return state.x, state.lprior, state.llh
+        D = self.num_variables
+        rows = torch.cat(
+            [self._own(state.x), self._own(state.lprior)[:, None], self._own(state.llh)[:, None]],
+            dim=1,
+        )
+        full = collectives.all_gather_rows(rows)
+        return full[:, :D], full[:, D], full[:, D + 1]
+
     # ------------------------------------------------------------------
     # Host orchestration
 
     def _find_starting_position(self):
         """Prior draws until every chain has a finite power posterior
-        (reference: SamplerPTChain.cpp FindStartingPosition:188-215)."""
-        C = self.num_chains
-        temps = self.temperatures
-        x = np.zeros((C, self.num_variables))
-        lprior = np.full(C, _NEG_INF)
-        llh = np.full(C, _NEG_INF)
-        found = np.zeros(C, dtype=bool)
+        (reference: SamplerPTChain.cpp FindStartingPosition:188-215).
+        Sharded, every rank draws the whole population and evaluates its
+        own rows, and the search ends when every rank's rows are found."""
+        C, rows = self.num_chains, self._rows
+        temps = self._cover(self.temperatures)
+        x = np.zeros((rows, self.num_variables))
+        lprior = np.full(rows, _NEG_INF)
+        llh = np.full(rows, _NEG_INF)
+        found = np.zeros(rows, dtype=bool)
+        done = False
         for _ in range(self.config.initial_position_tries):
-            draw = self.prior.sample(self.generator, (C,), self.dtype)
-            dl, dllh = self._evaluate(draw)
+            draw = self._cover(self.prior.sample(self.generator, (C,), self.dtype))
+            dl, dllh = self._evaluate_rows(draw)
             draw, dl, dllh = (t.cpu().numpy() for t in (draw, dl, dllh))
             with np.errstate(invalid="ignore"):
                 # power posterior with the T=0 convention (_lpp)
@@ -688,9 +826,13 @@ class SamplerPT:
             lprior[take] = dl[take]
             llh[take] = dllh[take]
             found |= np.isfinite(lpp)
-            if found.all():
+            done = bool(self._own(found).all())
+            if self._block is not None:
+                missing = torch.tensor([0 if done else 1], device=self.device)
+                done = int(collectives.all_reduce_sum(missing)) == 0
+            if done:
                 break
-        if not found.all():
+        if not done:
             raise RuntimeError(
                 "Could not find starting position with finite power posterior "
                 f"after {self.config.initial_position_tries} tries"
@@ -703,7 +845,7 @@ class SamplerPT:
 
     def _init_state(self) -> PTState:
         x, lprior, llh = self._find_starting_position()
-        C = self.num_chains
+        C = self._rows
 
         def zeros():
             return torch.zeros(C, dtype=torch.int32, device=self.device)
@@ -762,7 +904,14 @@ class SamplerPT:
         rows cross to the host (the whole history is gigabytes at the
         bench config). Indices come from the host RNG in position order,
         T=0 included, so the stream is the host path's and the JAX
-        package's."""
+        package's.
+
+        Sharded, every rank draws the same indices and takes the rows it
+        owns; one all-gather puts them in the unsharded order (the rows of
+        a position ascend by chain, so by rank): the counterpart of the JAX
+        package's `process_allgather`."""
+        if self._block is not None:
+            return self._gathered_downsampled_history(state, count)
         L, D = self.ladder_size, self.num_variables
         n = self.num_ensembles * count
         cols_d = torch.arange(D, device=self.device)
@@ -775,13 +924,72 @@ class SamplerPT:
             out.append(state.history[rows[:, None], cols].cpu().numpy().astype(np.float64))
         return out
 
+    def _gathered_downsampled_history(self, state: PTState, count: int):
+        """`_ladder_downsampled_history` of a sharded run."""
+        L, D, b = self.ladder_size, self.num_variables, self._block
+        n = self.num_ensembles * count
+        cols_d = torch.arange(D, device=self.device)
+        bounds = distributed.global_chain_mesh(self.num_chains)
+        sizes, mine = [], []  # sizes[i][r]: rows of position i that rank r owns
+        for i in range(L):
+            ix = self._downsample_indices(n)
+            e, t = ix // max(count, 1), ix % max(count, 1)
+            chain = i + e * L
+            sizes.append([int(np.count_nonzero((chain >= p0) & (chain < p1))) for p0, p1 in bounds])
+            own = (chain >= b.c0) & (chain < b.c1)
+            rows = torch.as_tensor(chain[own] - b.a0, device=self.device)
+            cols = torch.as_tensor(t[own], device=self.device)[:, None] * D + cols_d
+            mine.append(state.history[rows[:, None], cols])
+        counts = [sum(s[r] for s in sizes) for r in range(b.world)]
+        full = collectives.all_gather_rows(torch.cat(mine), counts).cpu()
+        # rank-major, each rank's rows position by position
+        out, off = [[] for _ in range(L)], 0
+        for r in range(b.world):
+            for i in range(L):
+                out[i].append(full[off : off + sizes[i][r]])
+                off += sizes[i][r]
+        return [torch.cat(parts).numpy().astype(np.float64) for parts in out]
+
     def _pooled_fixed_history(self, state: PTState, count: int) -> torch.Tensor:
         """The fixed-temperature (T=1) history of every ensemble, pooled, as
         (E * count, D) float32 on the device, ensemble-major (the JAX
         package's hist[L-1::L] rows): the one ladder position that the
-        clustering and the blockings read, without the rest of the buffer."""
-        L, D = self.ladder_size, self.num_variables
-        return state.history[L - 1 :: L, : count * D].reshape(-1, D)
+        clustering and the blockings read, without the rest of the buffer.
+        Sharded, each rank's T=1 rows gathered in rank order."""
+        L, D, b = self.ladder_size, self.num_variables, self._block
+        if b is None:
+            return state.history[L - 1 :: L, : count * D].reshape(-1, D)
+        first = b.c0 + (L - 1 - b.c0 % L) % L  # this rank's first T=1 chain
+        mine = state.history[first - b.a0 : b.c1 - b.a0 : L, : count * D]
+        counts = [len(range(p0 + (L - 1 - p0 % L) % L, p1, L))
+                  for p0, p1 in distributed.global_chain_mesh(self.num_chains)]
+        return collectives.all_gather_rows(mine, counts).reshape(-1, D)
+
+    def _check_replicas_agree(self):
+        """After a sharded boundary every rank must hold the same proposal
+        mixtures, blocks, clustering and random streams (each fitted the
+        same gathered history with the same host RNG): their digests are
+        gathered, and a mismatch raises rather than let the ranks sample
+        different chains."""
+        h = hashlib.sha256()
+        for p in self.proposals:
+            for f in ("means", "chols", "inv_chols", "log_weights", "log_c"):
+                h.update(getattr(p, f).detach().cpu().numpy().tobytes())
+        for blk in self.blocks:
+            h.update(np.asarray(blk, dtype=np.int64).tobytes())
+        if self._assigner is not None:
+            for f in spectral.ARRAY_FIELDS:
+                h.update(getattr(self._assigner, f).detach().cpu().numpy().tobytes())
+        h.update(json.dumps(self._host_rng.bit_generator.state, sort_keys=True).encode())
+        for gen in (self.generator, self._choice_generator):
+            h.update(gen.get_state().numpy().tobytes())
+        mine = torch.frombuffer(bytearray(h.digest()), dtype=torch.uint8).to(self.device)
+        every = collectives.all_gather_rows(mine[None])
+        if not bool((every == mine).all()):
+            raise RuntimeError(
+                "the ranks of a sharded run hold different proposals or random streams "
+                "after an adaptation boundary"
+            )
 
     def _adapt_proposals(self, state: PTState):
         """Host-side proposal adaptation (reference: SamplerPTChain.cpp
@@ -954,7 +1162,7 @@ class SamplerPT:
             new_proposals.append(
                 prop_mod.build_block_proposal(
                     ladder_gmms,
-                    self.num_chains,
+                    self._rows,
                     len(block),
                     self.dtype,
                     self.device,
@@ -1060,16 +1268,31 @@ class SamplerPT:
         `_adapt_proposals`);
         elapsed_seconds is the whole call's wall, sampling_seconds that of
         the iterations alone (without the start-position search and the
-        adaptation boundaries)."""
+        adaptation boundaries). Sharded, "ensemble_shard" is (first
+        ensemble, count) of a rank whose ladders are whole, whose samples
+        are then its own ensembles' only (merge them with
+        io/output.py's merge_sharded_results), else None; the acceptance
+        counts and evaluations cover every rank, and the primary's sample
+        handlers receive every rank's rows."""
         cfg = self.config
         t_start = time.perf_counter()
         self.adaptation_seconds = 0.0
         self.adaptation_boundaries = 0
         self.adaptation_timings = []
         adaptation_records = []
-        if self.progress is not None:
-            self.progress.start()
+        # the sample handlers and the progress line are the primary rank's;
+        # the handlers receive the whole population: where each rank
+        # returns its own ensembles, the rows are gathered for them, chunk
+        # by chunk, if the primary has any (a broadcast tells every rank)
+        primary = self._block is None or distributed.is_primary()
+        handlers = self.sample_handlers if primary else []
+        gather_for_handlers = self._emit_shard is not None and collectives.broadcast_object(
+            bool(handlers))
+        progress = self.progress if primary else None
+        if progress is not None:
+            progress.start()
         progress_rows = 0
+        emit_ensembles = self.num_ensembles if self._emit_shard is None else self._emit_shard[1]
 
         emitted = 0
         if cfg.checkpoint_file and os.path.exists(cfg.checkpoint_file):
@@ -1077,7 +1300,7 @@ class SamplerPT:
             logger.info(
                 "Resumed from checkpoint %s at %d emitted samples", cfg.checkpoint_file, emitted
             )
-            for handler in self.sample_handlers:
+            for handler in handlers:
                 if hasattr(handler, "set_position"):
                     handler.set_position(emitted * self.num_ensembles)
         else:
@@ -1109,6 +1332,8 @@ class SamplerPT:
                     t_adapt = time.perf_counter()
                     with torch.profiler.record_function("SamplerPT.adaptation"):
                         state, record = self._adapt_proposals(state)
+                        if self._block is not None:
+                            self._check_replicas_agree()
                     adaptation_records.append(record)
                     proposals = list(self.proposals)
                     self.adaptation_seconds += time.perf_counter() - t_adapt
@@ -1123,34 +1348,40 @@ class SamplerPT:
                     stop = cfg.num_samples
                 while emitted < stop:
                     m = min(chunk, stop - emitted)
-                    state, proposals, (xs, lps, lls) = self._run_segment(state, proposals, m)
-                    xs, lps, lls = (self._pool_ensembles(a) for a in (xs, lps, lls))
+                    state, proposals, rows = self._run_segment(state, proposals, m)
+                    xs, lps, lls = (self._pool_ensembles(a) for a in rows)
                     all_x.append(xs)
                     all_lprior.append(lps)
                     all_llh.append(lls)
-                    for handler in self.sample_handlers:
-                        handler.receive_samples(xs, lps, lls, self.emit_ladder)
+                    whole = (xs, lps, lls)
+                    if gather_for_handlers:
+                        whole = [self._pool_ensembles(self._gather_emitted(a)) for a in rows]
+                    for handler in handlers:
+                        handler.receive_samples(*whole, self.emit_ladder)
                     emitted += m
-                    if self.progress is not None:
+                    if progress is not None:
                         # running MAP over the fixed-temperature chains
                         # (reference: SamplerPT.cpp:223-226)
                         lpost = lps[:, -1].astype(np.float64) + lls[:, -1]
                         if lpost.size:
-                            self.progress.notify_max_lposterior(np.max(lpost))
+                            progress.notify_max_lposterior(np.max(lpost))
                         progress_rows += xs.shape[0]
-                        self.progress.update(
-                            progress_rows / max(self.expected_emitted_samples, 1)
+                        progress.update(
+                            progress_rows / max(emit_ensembles * cfg.num_samples, 1)
                         )
                 if cfg.checkpoint_file:
                     self._save_checkpoint(cfg.checkpoint_file, state, proposals, emitted)
         self.state = state
-        if self.progress is not None:
-            self.progress.finish()
+        if progress is not None:
+            progress.finish()
 
         sampling = time.perf_counter() - t_sampling - self.adaptation_seconds
         elapsed = time.perf_counter() - t_start
         # att_mut is int32 per chain; the population total needs int64
-        self.total_evaluations = int(state.att_mut.sum(dtype=torch.int64))
+        evaluations = self._own(state.att_mut).sum(dtype=torch.int64)
+        if self._block is not None:
+            evaluations = collectives.all_reduce_sum(evaluations)
+        self.total_evaluations = int(evaluations)
         evals_per_sec = self.total_evaluations / max(elapsed, 1e-9)
         logger.info(
             "Sampling finished: %d evaluations in %.2fs (%.1f evals/s)",
@@ -1161,7 +1392,7 @@ class SamplerPT:
         self._log_statistics(state)
 
         def host(t):
-            return t.cpu().numpy()
+            return self._gather(t).cpu().numpy()
 
         if not all_x:  # resumed from a checkpoint of a finished run
             L, D = self._emit_L, self.num_variables
@@ -1185,12 +1416,15 @@ class SamplerPT:
             "adaptation_seconds": self.adaptation_seconds,
             "adaptation_boundaries": self.adaptation_boundaries,
             "adaptation_breakdown": self.adaptation_timings,
+            "ensemble_shard": self._emit_shard,
             "num_ensembles": self.num_ensembles,
         }
 
     def _save_checkpoint(self, path: str, state: PTState, proposals, emitted: int):
         """The whole sampler state (io/checkpoint.py): `proposals` are the
-        running segment's, self.proposals those a later run() starts from."""
+        running segment's, self.proposals those a later run() starts from.
+        Sharded, every rank calls it: the state is gathered, the primary
+        writes the one complete file and the others wait for it."""
         from bcm3_tpu_torch.io.checkpoint import save_checkpoint
 
         save_checkpoint(
@@ -1208,16 +1442,19 @@ class SamplerPT:
                 "host_rng": self._host_rng.bit_generator.state,
                 "clustering_iteration": self.clustering_iteration,
             },
+            block=self._block,
         )
 
     def _restore_checkpoint(self, path: str):
         """Load a checkpoint into this sampler; returns the emitted count,
         the state and the running segment's proposals. The history's shape
-        must be this sampler's (chains x history rows x variables)."""
+        must be this sampler's (chains x history rows x variables). Sharded,
+        every rank reads the file and keeps its rows, whether a sharded or
+        an unsharded run wrote it."""
         from bcm3_tpu_torch.io.checkpoint import load_checkpoint
 
-        p = load_checkpoint(path, self.device, self.dtype)
-        shape = tuple(p["state"].history.shape)
+        p = load_checkpoint(path, self.device, self.dtype, block=self._block)
+        shape = p["history_shape"]
         expected = (self.num_chains, self.history_size * self.num_variables)
         if shape != expected:
             raise ValueError(
@@ -1236,21 +1473,30 @@ class SamplerPT:
         self.clustering_iteration = p["extra"]["clustering_iteration"]
         return p["emitted"], p["state"], p["live_proposals"]
 
+    def _gather_emitted(self, arr: np.ndarray) -> np.ndarray:
+        """(S, E_local*L, ...) of every rank, joined along axis 1 in rank
+        order: the whole population's emitted rows (per-rank emission)."""
+        t = torch.from_numpy(np.ascontiguousarray(np.moveaxis(arr, 1, 0))).to(self.device)
+        return np.moveaxis(collectives.all_gather_rows(t).cpu().numpy(), 0, 1)
+
     def _pool_ensembles(self, arr: np.ndarray) -> np.ndarray:
         """(S, E*L, ...) -> (S*E, L, ...): pool replica samples per
-        temperature, sample-major, as the JAX package stores them."""
-        E, L = self.num_ensembles, self._emit_L
+        temperature, sample-major, as the JAX package stores them (E is
+        this rank's own ensembles under per-rank emission)."""
+        L = self._emit_L
+        E = arr.shape[1] // L
         S = arr.shape[0]
         rest = arr.shape[2:]
         return arr.reshape(S, E, L, *rest).reshape(S * E, L, *rest)
 
     def acceptance_rates(self, state: PTState):
         """Per-temperature (mutate, exchange) acceptance, pooled over
-        ensembles (reference: SamplerPTChain.cpp LogStatistics:383-389)."""
+        ensembles (reference: SamplerPTChain.cpp LogStatistics:383-389);
+        sharded, over every rank (a collective: every rank calls it)."""
         L = self.ladder_size
 
         def per_temp(t):
-            return t.to(torch.float64).reshape(-1, L).sum(0).cpu().numpy()
+            return self._gather(t).to(torch.float64).reshape(-1, L).sum(0).cpu().numpy()
 
         att_m, acc_m = per_temp(state.att_mut), per_temp(state.acc_mut)
         att_e, acc_e = per_temp(state.att_exc), per_temp(state.acc_exc)

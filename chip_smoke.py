@@ -66,6 +66,21 @@ Phases, each printing its lines before the last:
    `one_transit` prior draws (B2), against U's stored values and the CPU;
    the importance sampler in batches of 65,536 draws; the bcmopt core at
    8 x 64 chains with one variable fixed;
+10b. `sharded_one`: `one` at the slice's width and depth with global-
+   covariance proposals and one boundary after 10 samples, unsharded, then
+   sharded (`shard_over_devices`) in a one-rank NCCL group in this process,
+   then unsharded again (a warm wall): bit for bit (samples, log
+   densities, acceptance counters, the proposals after the boundary); the
+   wall per iteration of each run and the boundary's gather seconds; the
+   entry points, `bcm3_tpu_torch.entry.entry()`'s step on the card and
+   `dryrun_multichip(1)` (a spawned NCCL rank);
+10c. `sharded_two_process`: two processes share the card over gloo
+   (`parallel.launch.spawn`): (a) `sharded_one`'s configuration at 4,096
+   ensembles a rank (whole ladders, each rank emits its own), merged and
+   held to sharded_one's unsharded run; (b) the banana fixture at 6 chains
+   x 3 ensembles (its second ladder across the ranks, the exchange point
+   to point between the processes), held to the one-process card run; bit
+   for bit; each rank's backend, device and B1 launches;
 11. the batched EM on the card (float64) against the same code on the CPU,
    on EM_HISTORIES histories of 2000 x 40 rows of the adapted run's T=1
    samples, fit by fit (see phase_em for what may differ and why), and
@@ -216,9 +231,11 @@ Phases, each printing its lines before the last:
    accessors to float64 rounding.
 
 The kernels' launch counters are set to 0 just before each slice of the
-main path (phases 4-7, 9, 10, 13-20, 22-34 and 36-39) and read just after
-it, so the counts show that each slice itself went through the kernels
-(`cli_one` through B1 and B2; phases 13-15, 20, 22, 23, 26-34 and 36-39
+main path (phases 4-7, 9, 10, 10b, 10c, 13-20, 22-34 and 36-39) and read
+just after it, so the counts show that each slice itself went through the
+kernels (`cli_one` through B1 and B2; `sharded_one` through B1, and
+`sharded_two_process`'s ranks, whose counts they return and the slice's
+count adds; phases 13-15, 20, 22, 23, 26-34 and 36-39
 run paths that no kernel serves, and 36-39 must launch none; phases 16, 17
 and 19 through B1 and B1T, phases 18 and 24 through B1, phase 25 through
 B2).
@@ -461,6 +478,16 @@ CCM_CPU_ROWS = 256
 CCM_RTOL = 1e-4
 # the device of phases 13-15 (a rehearsal on the CPU sets "cpu")
 CARD = "cuda"
+
+# sharded_one and sharded_two_process (a): `one` at the slice's width and
+# depth with global-covariance proposals and one boundary after 10 samples
+# (a GMM boundary costs a minute at this width, ROADMAP B5)
+SHARDED_ONE = dict(proposal_type="global_covariance", adapt_proposal_samples=10,
+                   adapt_proposal_times=1)
+# sharded_two_process (b): the banana fixture at 6 chains x 3 ensembles over
+# two ranks, so that the second ladder straddles them
+SHARDED_BANANA = dict(num_chains=6, num_ensembles=3, num_samples=40, use_every_nth=2,
+                      adapt_proposal_samples=20, adapt_proposal_times=1, seed=9)
 
 # published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
 # the tensor cores, and HBM3 bandwidth
@@ -4225,6 +4252,175 @@ def phase_rbridge(workdir, smi):
             rbridge.cleanup(cpu)
     return worst
 
+def sharded_one_config(**override):
+    """`pt_config` of `one` with SHARDED_ONE's adaptation."""
+    return dataclasses.replace(pt_config(ENSEMBLES["one"], NUM_SAMPLES["one"]), **SHARDED_ONE,
+                               **override)
+
+
+def sharded_banana_sampler(**override):
+    """SamplerPT over the banana fixture with SHARDED_BANANA, float32 on
+    CARD, every temperature emitted."""
+    import torch
+
+    from bcm3_tpu_torch.sampler import PTConfig, SamplerPT
+
+    prior, lik = analytic_model("banana")
+    cfg = PTConfig(**SHARDED_BANANA, **override, device=CARD, dtype=torch.float32)
+    return SamplerPT(prior, lik, cfg)
+
+
+SHARDED_KEYS = ("samples", "log_prior", "log_likelihood")
+
+
+def same_sharded_run(name, got, ref):
+    """A sharded run against the one-process run, bit for bit: samples,
+    log densities and every acceptance counter."""
+    import numpy as np
+
+    for k in SHARDED_KEYS:
+        assert np.array_equal(got[k], ref[k]), f"{name}: {k} differs from the one-process run"
+    for k, v in ref["acceptance"].items():
+        assert np.array_equal(got["acceptance"][k], v), f"{name}: acceptance {k} differs"
+    log(f"{name}: the sharded run equals the one-process run bit for bit")
+
+
+def phase_sharded_one(models, smi):
+    """`one` at bench width, unsharded and then sharded in a one-rank NCCL
+    group (the sharded path: the start search's all-reduce, the boundary's
+    gathers and digest check, the gathered statistics), bit for bit; the
+    entry points' step on the card and dryrun_multichip(1)."""
+    import torch
+    import torch.distributed as dist
+
+    from bcm3_tpu_torch import entry
+    from bcm3_tpu_torch.parallel import distributed, launch
+    from bcm3_tpu_torch.sampler import SamplerPT
+
+    prior, lik = models["one"]
+    iterations = NUM_SAMPLES["one"] * USE_EVERY_NTH
+    runs = {}
+    plain = SamplerPT(prior, lik, sharded_one_config())
+    runs["unsharded"] = plain.run()
+    device = distributed.initialize(f"tcp://localhost:{launch.free_port()}", 1, 0, device=CARD)
+    try:
+        log(f"sharded_one: backend {dist.get_backend()}, world {distributed.world()}, "
+            f"rank 0 on {device}")
+        sharded = SamplerPT(prior, lik, sharded_one_config(shard_over_devices=True))
+        assert sharded._block is not None and sharded._block.whole
+        runs["sharded"] = sharded.run()
+    finally:
+        distributed.destroy()
+    # the first run above was the process's first of this shape: a second
+    # unsharded run gives a wall as warm as the sharded run's
+    runs["unsharded, again"] = SamplerPT(prior, lik, sharded_one_config()).run()
+    res = runs["sharded"]
+    assert res["adaptation_boundaries"] == 1 and res["ensemble_shard"] == (0, ENSEMBLES["one"])
+    same_sharded_run("sharded_one", res, runs["unsharded"])
+    fields = ("means", "chols", "inv_chols", "log_weights", "log_c", "scales", "acc_ema",
+              "selected")
+    for a, b in zip(sharded.proposals, plain.proposals):
+        for f in fields:
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    for name, r in runs.items():
+        br = r["adaptation_breakdown"][0]
+        log(f"sharded_one {name}: {r['sampling_seconds'] * 1e3 / iterations:.4f} ms per "
+            f"iteration (of the iterations alone), {r['evals_per_second']:.1f} evals/s; the "
+            f"boundary {r['adaptation_seconds']:.3f} s, its history gather "
+            f"{br['gather_seconds']:.4f} s")
+    log("sharded_one: samples, log densities, acceptance counters and the proposals after "
+        "the boundary equal the unsharded run's bit for bit")
+    del plain, sharded
+    torch.cuda.empty_cache()
+
+    step, args = entry.entry(CARD)
+    t = time.perf_counter()
+    x, lprior, llh = step(*args)
+    torch.cuda.synchronize()
+    assert x.device.type == torch.device(CARD).type and x.shape == (6, 2)
+    assert bool(torch.isfinite(lprior + llh).all())
+    log(f"entry(): one PT iteration of the banana fixture's 6 chains on {x.device} in "
+        f"{(time.perf_counter() - t) * 1e3:.3f} ms (first call)")
+    t = time.perf_counter()
+    dry = entry.dryrun_multichip(1, CARD)
+    log(f"dryrun_multichip(1): one rank, samples {dry['samples'].shape}, "
+        f"{dry['evaluations']} evaluations, {time.perf_counter() - t:.2f} s with the process")
+    return runs["unsharded"]
+
+
+def sharded_rank(rank, world, workdir, card, ensembles):
+    """One rank of sharded_two_process: (a) `one` at bench width, then (b)
+    the banana fixture; each run's outputs, its backend and device, and
+    its B1 launches. `card` and `ensembles` are the parent's CARD and
+    ENSEMBLES["one"] (a rank imports this script afresh)."""
+    import torch.distributed as dist
+
+    from bcm3_tpu_torch.ops import poppk_kernels
+    from bcm3_tpu_torch.parallel import distributed
+    from bcm3_tpu_torch.sampler import SamplerPT
+
+    global CARD
+    CARD = card
+    ENSEMBLES["one"] = ensembles
+    mine = os.path.join(workdir, f"rank{rank}")  # each rank writes its own prior file
+    os.makedirs(mine, exist_ok=True)
+    samplers = {
+        "one": lambda: SamplerPT(*build_model("one", mine),
+                                 sharded_one_config(shard_over_devices=True)),
+        "banana": lambda: sharded_banana_sampler(shard_over_devices=True),
+    }
+    keep = SHARDED_KEYS + ("acceptance", "ensemble_shard", "num_ensembles", "sampling_seconds",
+                           "evaluations", "adaptation_boundaries")
+    out = {}
+    for which, make in samplers.items():
+        poppk_kernels.propagate_intervals_one_compartment.launches = 0
+        res = make().run()
+        out[which] = dict({k: res[k] for k in keep}, backend=dist.get_backend(),
+                          device=str(distributed.rank_device(card)),
+                          b1_launches=poppk_kernels.propagate_intervals_one_compartment.launches)
+    return out
+
+
+def phase_sharded_two_process(models, workdir, one_process, smi):
+    """Two processes share the one card over gloo (launch.spawn): (a) `one`
+    at bench width, 4,096 ensembles a rank (whole ladders), merged and
+    held to the one-process run of sharded_one; (b) the banana fixture at
+    6 x 3, whose second ladder straddles the ranks (the exchange crosses
+    processes), held to the one-process card run."""
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch.io.output import merge_sharded_results
+    from bcm3_tpu_torch.parallel import launch
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    both = launch.spawn(sharded_rank, 2, CARD, workdir, CARD, ENSEMBLES["one"], backend="gloo")
+    log(f"sharded_two_process: {time.perf_counter() - t:.2f} s with the processes")
+    b1 = 0
+    for which in ("one", "banana"):
+        ranks = [r[which] for r in both]
+        for r, res in enumerate(ranks):
+            log(f"sharded_two_process {which}: rank {r} of 2, backend {res['backend']}, device "
+                f"{res['device']}, ensemble_shard {res['ensemble_shard']}, "
+                f"{res['b1_launches']} B1 launches, sampling {res['sampling_seconds']:.3f} s")
+        b1 += sum(res["b1_launches"] for res in ranks)
+        if which == "one":
+            got = merge_sharded_results([dict(r, temperatures=None) for r in ranks])
+            got["acceptance"] = ranks[0]["acceptance"]
+            ref = one_process
+            half = ENSEMBLES["one"] // 2
+            assert [r["ensemble_shard"] for r in ranks] == [(0, half), (half, half)]
+        else:
+            got = ranks[0]
+            assert all(r["ensemble_shard"] is None for r in ranks)
+            for k in SHARDED_KEYS:
+                assert np.array_equal(ranks[1][k], got[k]), k
+            ref = sharded_banana_sampler().run()
+        assert all(r["adaptation_boundaries"] == 1 for r in ranks)
+        same_sharded_run(f"sharded_two_process {which}", got, ref)
+    return b1
+
 
 def main(workdir):
     phase_times = {}
@@ -4285,6 +4481,15 @@ def main(workdir):
     del autoblock
     torch.cuda.empty_cache()
     main_path("cli_one", ("poppk_propagate", "transit_dp5"), phase_cli, models, workdir, smi)
+    # the multi-device path: a one-rank NCCL group here, then two processes
+    # sharing the card over gloo (their B1 launches are counted in the ranks
+    # and added to the slice's)
+    one_process = main_path("sharded_one", ("poppk_propagate",), phase_sharded_one, models, smi)
+    two = main_path("sharded_two_process", (), phase_sharded_two_process, models, workdir,
+                    one_process, smi)
+    paths["sharded_two_process"]["poppk_propagate"] += two
+    assert two > 0, "sharded_two_process never launched poppk_propagate"
+    del one_process
     # the slices of this port's later paths, which no kernel serves
     # (counted all the same, to show it)
     analytic = {"banana": main_path("banana", (), phase_banana, smi),

@@ -77,8 +77,9 @@ def test_pt_config_fields_equal(tmp_path):
     pcfg = pconfig.pt_config_from_options(pmap)
     common = {f.name for f in dataclasses.fields(jcfg)} & {f.name for f in dataclasses.fields(pcfg)}
     common -= {"dtype", "emit_dtype"}
-    # the 27 fields the table sets besides emit_dtype, gmm_fit_backend, shard_over_devices
-    assert len(common) == 29
+    # the 27 fields the table sets besides emit_dtype, and gmm_fit_backend,
+    # shard_over_devices and mesh_devices, which it leaves at their defaults
+    assert len(common) == 30
     for name in sorted(common):
         assert getattr(pcfg, name) == getattr(jcfg, name), name
     assert str(jcfg.emit_dtype) == "float32" and pcfg.emit_dtype == torch.float32

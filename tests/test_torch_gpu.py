@@ -37,6 +37,9 @@ Each kernel is held to its plain PyTorch version on the same inputs:
   every lane, and central is bit-identical on the lanes that finish;
 - B1 and B2 at one patient (P = 1, the single-patient likelihood's
   shape): bit for bit.
+
+The sharded sampler in a one-rank NCCL group equals the unsharded run on
+the card bit for bit.
 """
 
 import numpy as np
@@ -1013,3 +1016,28 @@ def test_rbridge_on_the_card(cuda, tmp_path):
         finally:
             rbridge.cleanup(h)
             rbridge.cleanup(hc)
+
+
+def test_sharded_one_rank_nccl_matches_unsharded(cuda):
+    """shard_over_devices in a one-rank NCCL group takes the sharded path
+    (the start search's all-reduce, the boundary's gathers and digest
+    check, the gathered statistics) and equals the unsharded run on the
+    card bit for bit, on the banana fixture with one GMM boundary."""
+    from bcm3_tpu_torch import entry
+    from bcm3_tpu_torch.parallel import distributed, launch
+
+    cfg = dict(num_samples=20, use_every_nth=2, num_chains=4, num_ensembles=64,
+               adapt_proposal_samples=10, adapt_proposal_times=1, seed=5, dtype=torch.float32)
+    plain = entry._sampler("cuda", **cfg).run()
+    distributed.initialize(f"tcp://localhost:{launch.free_port()}", 1, 0, device="cuda")
+    try:
+        s = entry._sampler("cuda", shard_over_devices=True, **cfg)
+        assert s._block is not None and s._block.whole
+        sharded = s.run()
+    finally:
+        distributed.destroy()
+    assert sharded["adaptation_boundaries"] == 1 and sharded["ensemble_shard"] == (0, 64)
+    for k in ("samples", "log_prior", "log_likelihood"):
+        np.testing.assert_array_equal(sharded[k], plain[k], err_msg=k)
+    for k, v in plain["acceptance"].items():
+        np.testing.assert_array_equal(sharded["acceptance"][k], v, err_msg=k)

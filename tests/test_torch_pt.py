@@ -693,17 +693,29 @@ def test_clustered_run_crosses_its_boundaries_once(clustered_runs):
     assert 0.0 < ps.acceptance_rates(ps.state)[0][-1] < 1.0
 
 
-@pytest.mark.parametrize("override,item", [(dict(shard_over_devices=True), "A13")])
-def test_unported_options_raise(poppk_files, override, item):
-    cfg = dict(_SMALL, **override)
+@pytest.mark.parametrize("override", [dict(shard_over_devices=True, mesh_devices=1)])
+def test_sharding_without_a_group_runs_unsharded(poppk_files, override):
+    """shard_over_devices without an initialized process group runs the
+    unsharded path, as the JAX package does on one device
+    (bcm3_tpu/sampler/pt.py:1395): the same run bit for bit. The sharded
+    path itself: tests/test_torch_parallel.py."""
     prior_xml = os.path.join(poppk_files, "prior.xml")
     vs = VariableSet.from_xml(prior_xml)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        SamplerPT(
+    runs = []
+    for cfg in (_SMALL, dict(_SMALL, **override)):
+        s = SamplerPT(
             Prior.from_xml(prior_xml, vs),
             create_likelihood(os.path.join(poppk_files, "likelihood.xml"), vs),
             PTConfig(**cfg, device="cpu", dtype=torch.float64),
         )
+        assert s._block is None
+        runs.append(s.run())
+    plain, sharded = runs
+    for k in ("samples", "log_prior", "log_likelihood"):
+        np.testing.assert_array_equal(sharded[k], plain[k], err_msg=k)
+    for k, v in plain["acceptance"].items():
+        np.testing.assert_array_equal(sharded["acceptance"][k], v, err_msg=k)
+    assert sharded["ensemble_shard"] is None and sharded["evaluations"] == plain["evaluations"]
 
 
 def test_config_runs_on_the_card_unless_asked():
