@@ -228,7 +228,8 @@ def fixed_parameter_likelihood(
         batch[:, pos.to(xs.device)] = xs
         return full.log_prob_batched(batch)
 
-    return Likelihood("bcmopt", log_prob_batched)
+    # the model goes along for its gradient mode (sampler/hmc.py `gradient_mode`)
+    return Likelihood("bcmopt", log_prob_batched, model=full.model)
 
 
 def create_likelihood(filename_or_type: str, varset: VariableSet, **kwargs) -> Likelihood:

@@ -19,7 +19,13 @@ one of four paths, by structural model:
   path does (bcm3_tpu/likelihoods/poppk.py:646-712);
 - `two_transit`: the budgeted DP5 solve of ode/dp5.py in the dtype of the
   parameters over lanes (chain, patient), as the JAX package's XLA path
-  does (bcm3_tpu/likelihoods/poppk.py:500-613).
+  does (bcm3_tpu/likelihoods/poppk.py:500-613);
+- both transit models in the gradient mode (`gradient_mode`, which the
+  gradient samplers set around their evaluations): that XLA path's solve
+  with its Jacobian in the lane rates, kernel B2J
+  (ops/transit_tangent_kernels.py `TransitCentral`), differentiable, in
+  the parameters' dtype: the JAX package's gradient samplers evaluate and
+  differentiate `log_prob`, whose transit solve is that path's.
 
 All end in the same scoring: a Student-t(nu=4) residual with additive +
 proportional sd over the (B, P, T) observation grid, the double-where for
@@ -49,6 +55,12 @@ from bcm3_tpu_torch.ode import linear_pk
 from bcm3_tpu_torch.ode.dp5 import solve_at_times_budget
 from bcm3_tpu_torch.ops.poppk_kernels import PropagateOneCompartment
 from bcm3_tpu_torch.ops.transit_kernels import transit_solve
+from bcm3_tpu_torch.ops.transit_tangent_kernels import (
+    RATES,
+    TRANSIT_LOG_FLOOR,
+    TransitCentral,
+    log_floor_is_zero,
+)
 
 # reference: LikelihoodPopPKTrajectory.cpp:377-394
 DRUG_MOLWEIGHTS = {
@@ -331,6 +343,12 @@ class PopPKLikelihood:
         if self.pk_type in TRANSIT_TYPES:
             self._prepare_transit_grid()
         self._tensors = {}
+        # the gradient samplers' switch (hmc.LogPosterior sets it around its
+        # evaluations): the transit models then follow the JAX package's
+        # `log_prob` (its XLA path, which JAX differentiates) through kernel
+        # B2J with its Jacobian, in the rows' dtype; outside it one_transit
+        # runs B2 (the JAX package's batched Pallas path) in float32
+        self.gradient_mode = False
 
     # ------------------------------------------------------------------
 
@@ -595,11 +613,29 @@ class PopPKLikelihood:
             + torch.log(1.0 + 1.0 / (12.0 * n_transit))
         )
         ka_ke = ka + ke
+        # the floor of log(k_transit * t_since), 1e-300, is 0 in float32: at
+        # t_since = 0 (the first stage after every dose) the log is -inf and
+        # the Erlang term exp(-inf) = 0, whose derivative is then NaN (0 times
+        # the infinite derivative of log at 0). Where autograd records, the
+        # double-where takes the log of 1 there and the term is set to its
+        # value, exp(n_transit * -inf - log_nfac) (0, or NaN as before for a
+        # NaN n_transit), so every value stays what it was.
+        guard = log_floor_is_zero(p["ka"].dtype) and torch.is_grad_enabled() and any(
+            v.requires_grad for v in (ka, ke, kel, kpf, kpb, k_transit, n_transit))
+        if guard:
+            fill = torch.exp(n_transit * -math.inf - log_nfac).detach()
 
         def deriv(t, y, _args):
             t_since = torch.clamp(t - y[:, n], min=0.0)
-            log_t = torch.log(torch.clamp(k_transit * t_since, min=1e-300))
+            arg = torch.clamp(k_transit * t_since, min=TRANSIT_LOG_FLOOR)
+            if guard:
+                zero = arg == 0
+                log_t = torch.log(torch.where(zero, 1.0, arg))
+            else:
+                log_t = torch.log(arg)
             transit = torch.exp(n_transit * log_t - k_transit * t_since - log_nfac)
+            if guard:
+                transit = torch.where(zero, fill, transit)
             transit = k_transit * transit * y[:, n + 1]
             dgut = transit - ka_ke * y[:, 0]
             if two_comp:
@@ -646,7 +682,35 @@ class PopPKLikelihood:
         out = ys.gather(2, tb["obs_pos"][None, :, :, None].expand(B, P, T, n + 2))
         return out if full_state else out[..., 1]
 
+    def transit_jacobian_inputs(self, p, tb):
+        """The arguments of `TransitCentral.apply` (and of B2J) for the
+        per-patient parameters p: the tables, the solver's options (the
+        tolerances of `_simulate_transit`) and the lane rates (B * P,) in
+        RATES order, lane b * P + j being patient j."""
+        B, P = p["ka"].shape
+        names = RATES[: 5 if self.n_states == 2 else 7]
+        rates = [(p[k][:, None] if p[k].dim() == 1 else p[k]).expand(B, P).reshape(B * P)
+                 .contiguous() for k in names]
+        tables = {"grid": tb["grid"], "amt": tb["amt"], "dose0": tb["initial_dose"],
+                  "obs_pos": tb["obs_pos"]}
+        options = {"trips": self.solver_trips, "rtol": 1e-6,
+                   "atol": float(np.min(self.trial.dose)) * 1e-6, "min_dt": 1e-5}
+        return tables, options, rates
+
+    def _central_transit_jacobian(self, p, tb):
+        """Central compartment (B, P, T) in mg of the transit models in the
+        gradient mode: the budgeted DP5 solve of `_simulate_transit` in the
+        parameters' dtype through `TransitCentral` (kernel B2J on the card,
+        its plain version on the CPU), differentiable in the rates; failed
+        lanes NaN."""
+        B, P = p["ka"].shape
+        tables, options, rates = self.transit_jacobian_inputs(p, tb)
+        central = TransitCentral.apply(tables, options, *rates)
+        return central.reshape(B, P, -1)
+
     def _central(self, p, tb, dtype):
+        if self.pk_type in TRANSIT_TYPES and self.gradient_mode:
+            return self._central_transit_jacobian(p, tb)
         if self.pk_type == "one":
             return self._central_one(p, tb)
         if self.pk_type == "one_transit":
@@ -659,10 +723,19 @@ class PopPKLikelihood:
         """Log-likelihood of every row of xs (B, D); returns (B,).
 
         Runs on xs's device in xs's dtype (the `one_transit` solve itself
-        always in float32)."""
+        in float32, outside the gradient mode)."""
         tb = self._tables(xs.device, xs.dtype)
         p, sd, sd2 = self._patient_params(xs)
         central = self._central(p, tb, xs.dtype)
+        failed = None
+        if self.gradient_mode:
+            # the amounts of a failed solve (NaN) leave the arithmetic here,
+            # and the row is -inf below as before: its gradient is 0 rather
+            # than the JAX package's NaN (0 times the derivatives at NaN),
+            # which VI's mean over its Monte Carlo rows would carry into
+            # every parameter
+            failed = torch.isnan(central)
+            central = torch.where(failed, 0.0, central)
 
         # mg -> nM conversion (reference: cpp:377-394)
         x = central * (self.conversion_base / p["vod"])[:, None, None]
@@ -677,7 +750,8 @@ class PopPKLikelihood:
         # NaN anywhere in the simulated window -> reject
         # (reference: LikelihoodPopPKTrajectory.cpp:416-424)
         window = tb["window_mask"][None]
-        bad = (window & torch.isnan(x)).any(dim=2).any(dim=1) | torch.isnan(logp)
+        nan = torch.isnan(x) if failed is None else torch.isnan(x) | failed
+        bad = (window & nan).any(dim=2).any(dim=1) | torch.isnan(logp)
         return torch.where(bad, -math.inf, logp)
 
 

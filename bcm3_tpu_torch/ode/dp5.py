@@ -73,9 +73,21 @@ def _step(f, t, y, dt, args):
     return y5, y5 - y4
 
 
+def _safe_sqrt(x):
+    """sqrt(x) whose derivative is 0 where x is exactly 0 (the double-where
+    rule: the untaken branch takes the root of 1), with every value bit for
+    bit sqrt's, NaN and inf included. Departure from bcm3_tpu/ode/dp5.py:308-310,
+    whose plain sqrt has an infinite derivative at 0: a lane with a
+    zero-length remainder (a lane past its last stop) multiplies it by the
+    zero cotangent of `where(remaining > 0, ...)` and turns every
+    gradient of the solve into NaN."""
+    zero = x == 0
+    return torch.where(zero, 0.0, torch.sqrt(torch.where(zero, 1.0, x)))
+
+
 def _error_norm(y, y5, err, rtol, atol):
     scale = atol + rtol * torch.maximum(y.abs(), y5.abs())
-    return torch.sqrt(((err / scale) ** 2).mean(dim=-1))
+    return _safe_sqrt(((err / scale) ** 2).mean(dim=-1))
 
 
 def _factor(err_norm):

@@ -40,6 +40,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _F32 = ctypes.c_float
+_F64 = ctypes.c_double
 
 # C entry points: name -> argument types (every pointer and the stream
 # are c_void_p; every entry returns the cudaGetLastError() code)
@@ -58,6 +59,12 @@ _SIGNATURES = {
     # rtol, atol, min_dt, first_dt, stream
     "bcm3_transit_dp5_f32": [_P] * 13
     + [_I32, _I32, _I32, _I32, _F32, _F32, _F32, _F32, _P],
+    # ka, ke, kel, k_transit, n_transit, kpf, kpb, dose0, grid, amt,
+    # obs_slot, central, jac, ok, next_lane, lane_trips, lanes, patients,
+    # stops, observations, states, trips, rtol, atol, min_dt, first_dt,
+    # stream
+    "bcm3_transit_dp5_tangent_f32": [_P] * 16 + [_I32] * 6 + [_F64] * 4 + [_P],
+    "bcm3_transit_dp5_tangent_f64": [_P] * 16 + [_I32] * 6 + [_F64] * 4 + [_P],
 }
 
 _loaded: ctypes.CDLL | None = None

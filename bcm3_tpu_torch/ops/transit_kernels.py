@@ -198,7 +198,9 @@ def transit_solve(
     contiguous; `warp_slots`, a (1,) int64 CUDA tensor, is then increased
     by the trip slots the kernel's warps issued (for the warp efficiency
     sum(trips) / (32 * slots); the plain version has no warps). On a CUDA
-    tensor that requires grad it raises: the kernel has no reverse mode."""
+    tensor that requires grad it raises: the kernel has no reverse mode (the
+    likelihood's gradient mode differentiates the transit models through
+    kernel B2J)."""
     if grid.device.type == "cpu":
         if warp_slots is not None:
             raise ValueError("warp_slots counts the CUDA kernel's warps")
@@ -210,8 +212,11 @@ def transit_solve(
     named = [(k, params[k], (L,)) for k in LANE_PARAMS]
     named += [("dose0", params["dose0"], (P,)), ("grid", grid, (P, S)),
               ("dose_amt", dose_amt, (P, S))]
-    # B2 has no reverse mode yet (ROADMAP B9)
-    build.refuse_grad("transit_solve", [x for _, x, _ in named])
+    # B2 has no reverse mode: gradients of the transit models go through the
+    # likelihood's gradient mode, kernel B2J (ops/transit_tangent_kernels.py)
+    build.refuse_grad(
+        "transit_solve (no reverse mode; the gradient samplers use PopPKLikelihood's "
+        "gradient_mode, kernel B2J)", [x for _, x, _ in named])
     for name, x, shape in named:
         if x.device != grid.device or x.device.type != "cuda":
             raise ValueError(f"{name} must be on {grid.device} (CUDA), got {x.device}")

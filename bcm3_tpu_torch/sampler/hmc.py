@@ -6,7 +6,9 @@ derivative-free PT-MH/IS pair, BASELINE north star):
 - C chains advance in lockstep: each leapfrog step is one batched
   gradient evaluation of the whole population through the likelihood's
   `log_prob_batched` (on the card, for PopPK `one`, kernel B1 forward and
-  B1T backward, ops/poppk_kernels.py);
+  B1T backward, ops/poppk_kernels.py; for the transit models kernel B2J,
+  the solve with its Jacobian, in the likelihood's gradient mode, which
+  `LogPosterior` sets around every evaluation);
 - constrained variables are reparametrized to unbounded space (logit for
   two-sided bounds, log for one-sided) with the log-Jacobian in the
   target (`Reparam`, also used by NUTS and VI);
@@ -27,6 +29,7 @@ after the loop.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import time
@@ -55,18 +58,6 @@ class HMCConfig:
     use_every_nth: int = 1
     device: str = "cuda"
     dtype: torch.dtype = torch.float64
-
-
-def require_gradients(likelihood, sampler: str) -> None:
-    """Refuse a likelihood whose gradient the port cannot take yet: the
-    transit PopPK models solve through kernel B2, which has no reverse
-    mode (ROADMAP B9)."""
-    pk_type = getattr(getattr(likelihood, "model", None), "pk_type", None)
-    if pk_type in ("one_transit", "two_transit"):
-        raise NotImplementedError(
-            f"{sampler} needs the likelihood's gradient; pk_type '{pk_type}' has none in "
-            "the port yet (ROADMAP B9: B2's adjoint)"
-        )
 
 
 class Reparam:
@@ -130,11 +121,31 @@ class Reparam:
         return z.to(x.dtype)
 
 
+@contextlib.contextmanager
+def gradient_mode(likelihood):
+    """The likelihood's gradient mode for the duration: a model with a
+    `gradient_mode` switch (PopPK's transit models: the JAX package's
+    `log_prob` path, which its gradient samplers differentiate, through
+    kernel B2J) takes it; any other likelihood is left as it is."""
+    model = getattr(likelihood, "model", None)
+    if not hasattr(model, "gradient_mode"):
+        yield
+        return
+    before = model.gradient_mode
+    model.gradient_mode = True
+    try:
+        yield
+    finally:
+        model.gradient_mode = before
+
+
 class LogPosterior:
     """The target of the gradient samplers in z-space, batched over rows:
     log prior + log-Jacobian + learning rate x log-likelihood, NaN -> -inf
     (bcm3_tpu/sampler/nuts.py:122-127). `gradient_evaluations` counts the
-    batched calls of `value_and_grad`."""
+    batched calls of `value_and_grad`. Every evaluation, the stored scores
+    of `score` included, runs in the likelihood's gradient mode, so that the
+    values the sampler saw and the values it stores are the same."""
 
     def __init__(self, prior, likelihood):
         self.prior = prior
@@ -142,11 +153,14 @@ class LogPosterior:
         self.reparam = Reparam(prior.lower, prior.upper)
         self.gradient_evaluations = 0
 
+    def _log_likelihood(self, x):
+        with gradient_mode(self.likelihood):
+            return self.likelihood.log_prob_batched(x) * self.likelihood.learning_rate
+
     def __call__(self, z):
         x = self.reparam.to_x(z)
         lp = self.prior.log_pdf(x) + self.reparam.log_jacobian(z)
-        ll = self.likelihood.log_prob_batched(x) * self.likelihood.learning_rate
-        total = lp + ll
+        total = lp + self._log_likelihood(x)
         return torch.where(torch.isnan(total), -math.inf, total)
 
     def value_and_grad(self, z):
@@ -168,7 +182,7 @@ class LogPosterior:
                 x = self.reparam.to_x(zs[i : i + SCORE_BATCH])
                 xs.append(x.cpu().numpy())
                 lps.append(self.prior.log_pdf(x).double().cpu().numpy())
-                ll = self.likelihood.log_prob_batched(x) * self.likelihood.learning_rate
+                ll = self._log_likelihood(x)
                 lls.append(ll.double().cpu().numpy())
         return np.concatenate(xs), np.concatenate(lps), np.concatenate(lls)
 
@@ -189,7 +203,6 @@ class SamplerHMC:
     """Batched HMC over the posterior lprior + llh."""
 
     def __init__(self, prior, likelihood, config: HMCConfig):
-        require_gradients(likelihood, "HMC")
         self.prior = prior
         self.likelihood = likelihood
         self.config = config

@@ -11,9 +11,10 @@ and rejecting a doubling.
 The JAX package vmaps one chain's transition, and its `while_loop`s run
 each chain to its own end. Here all C chains advance in lockstep: every
 leaf is one batched gradient evaluation of all chains (on the card, for
-PopPK `one`, kernel B1 forward and B1T backward), and a chain whose tree
-or subtree has ended is masked, not branched: it still goes through the
-evaluation, and its state does not change. The doubling and the leaf
+PopPK `one`, kernel B1 forward and B1T backward; for the transit models
+kernel B2J), and a chain whose tree or subtree has ended is masked, not
+branched: it still goes through the evaluation, and its state does not
+change. The doubling and the leaf
 index are therefore the same for every chain that is still going, so the
 checkpoint indices are host integers. The host reads one flag per leaf
 (whether any chain is still growing its subtree) and one per doubling;
@@ -44,7 +45,7 @@ from typing import Any, List
 import numpy as np
 import torch
 
-from bcm3_tpu_torch.sampler.hmc import LogPosterior, emit, require_gradients
+from bcm3_tpu_torch.sampler.hmc import LogPosterior, emit
 
 logger = logging.getLogger(__name__)
 
@@ -114,7 +115,6 @@ class SamplerNUTS:
     """Batched multinomial NUTS over the posterior lprior + llh."""
 
     def __init__(self, prior, likelihood, config: NUTSConfig):
-        require_gradients(likelihood, "NUTS")
         self.prior = prior
         self.likelihood = likelihood
         self.config = config
@@ -267,14 +267,20 @@ class SamplerNUTS:
         u = torch.rand((2 * M + num_draws(M), C), generator=g, dtype=dtype, device=dev)
         return normal, u[:M] < 0.5, u[M : 2 * M], u[2 * M :]
 
-    def run(self):
+    def run(self, x0=None):
+        """Warmup and sampling. The chains start at `x0` (C, D) where given,
+        else at C prior draws, as the JAX package's do (a start of density
+        -inf never moves, and its leaves, diverging, count as rejections in
+        the step size's adaptation: ROADMAP C)."""
         cfg = self.config
         D = self.prior.num_variables
         C = cfg.num_chains
         dtype = cfg.dtype
         dev = self.device
 
-        zs = self.target.reparam.from_x(self.prior.sample(self.generator, (C,), dtype))
+        if x0 is None:
+            x0 = self.prior.sample(self.generator, (C,), dtype)
+        zs = self.target.reparam.from_x(torch.as_tensor(x0, dtype=dtype, device=dev))
         logps, grads = self.target.value_and_grad(zs)
         t0 = time.time()
 

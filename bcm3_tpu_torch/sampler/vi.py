@@ -6,7 +6,8 @@ diagonal Gaussian in the unbounded reparametrized space of the gradient
 samplers (`hmc.Reparam`), fit by maximizing the reparametrized-gradient
 ELBO with Adam. Each ELBO estimate is one batched evaluation of the
 target at num_mc_samples rows (on the card, for PopPK `one`, through
-kernel B1 and its reverse mode B1T).
+kernel B1 and its reverse mode B1T; for the transit models through
+kernel B2J).
 
 `torch.optim.Adam` with its defaults (betas 0.9 and 0.999, eps 1e-8, no
 weight decay) makes the update of `optax.adam`'s defaults,
@@ -27,7 +28,7 @@ from typing import Any, List
 import numpy as np
 import torch
 
-from bcm3_tpu_torch.sampler.hmc import LogPosterior, require_gradients
+from bcm3_tpu_torch.sampler.hmc import LogPosterior
 
 logger = logging.getLogger(__name__)
 
@@ -48,7 +49,6 @@ class VIConfig:
 
 class SamplerVI:
     def __init__(self, prior, likelihood, config: VIConfig):
-        require_gradients(likelihood, "VI")
         self.prior = prior
         self.likelihood = likelihood
         self.config = config

@@ -8,14 +8,20 @@ Run from the root of a checkout, with no arguments:
 Phases, each printing its lines before the last:
 
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA, nvcc;
-2. build: the CUDA kernels (B1 with its reverse mode B1T, B2) compiled by
-   nvcc from bcm3_tpu_torch/csrc;
+2. build: the CUDA kernels (B1 with its reverse mode B1T, B2, and B2J,
+   the transit solve with its Jacobian) compiled by nvcc from
+   bcm3_tpu_torch/csrc;
 3. each kernel against its plain PyTorch version at the slice's shapes, on
    inputs made by the slice's own likelihood from prior draws, with
    CUDA-event timings of both and each kernel's bound (the least time the
    card could take for the same work); for B2 also the per-lane trip
    counts of kernel and plain version (asserted equal), their
    distribution, the warp efficiency and the trips the early exit saves;
+   B2J (the gradient mode's transit solve with its Jacobian in the lane
+   rates) on `one_transit` at the NUTS width (2,048 draws x 16 patients,
+   float32) and on both transit models at 64 draws in float64: `ok`, the
+   trip counts, the central amounts and the Jacobian (limits B2J_*), the
+   kernel's time, the wrapper's host time a call, the bound;
 3b. `kernels_one_patient`: B1 and B2 at one patient (P = 1), on the inputs
    the single-patient likelihood (`pharmacokinetic_trajectory`) makes
    from prior draws at the slices' widths, bit for bit against their
@@ -105,9 +111,9 @@ Phases, each printing its lines before the last:
    the T=1 share with x1 > 0 against the quadrature mass;
 15. `poppk_models`: `two` and `one_biphasic_uptake` at `one`'s width and
    depth (cold, warm and profiled runs), `two_transit` at one_transit's
-   width in one evaluation and one profiled evaluation, each against the
-   port on the CPU on 256 prior draws (two_transit on
-   TWO_TRANSIT_ORACLE_DRAWS);
+   width in one evaluation (its profile is cut for the gradient phases'
+   time), each against the port on the CPU on 256 prior draws
+   (two_transit on TWO_TRANSIT_ORACLE_DRAWS);
 16. `nuts_one`: bench.py bench_nuts's NUTS on `one` (2,048 chains, max tree
    depth 7, target acceptance 0.9, seed 5, float32; warmup and samples
    cut): every leaf one gradient evaluation of all chains through B1 and
@@ -125,8 +131,18 @@ Phases, each printing its lines before the last:
    SMC at 8,192 particles (16 populations) held to the port's CPU run
    within 4 standard errors, its distance from the oracle logged (its
    reflection on the prior's bounds moves it off, ROADMAP C);
+19b. `nuts_one_transit`: bench_nuts's NUTS on `one_transit` (2,048
+   chains, target acceptance 0.9, seed 5, float32) at max tree depth 5,
+   20 warmup and 10 sampling transitions from prior draws of finite
+   density, every leaf one gradient evaluation through B2J: chains moved,
+   the gradient finite wherever the density is at the run's end, leaf
+   wall, gradient evaluations/s, ESS/s, B2J's launches and device ms a
+   leaf;
 21. `gradient_card_vs_cpu`: the card's float32 log-posterior and gradient
-   in z against the CPU's float64 on 256 prior draws of `one`; B1T
+   in z against the CPU's float64 on 256 prior draws of `one`; the
+   transit models' (the gradient mode, B2J) on 64 draws, the card's
+   float64 against the CPU's float64 (computed meanwhile in a process of
+   its own) and its float32 reported; B1T
    against its plain version, bit for bit (asserted), at the widths its
    paths launch it: NUTS and HMC's (32,768 lanes, float32), the PT
    headline's (1,048,576, float32) and VI's (512, float64), each with its
@@ -231,21 +247,21 @@ Phases, each printing its lines before the last:
    accessors to float64 rounding.
 
 The kernels' launch counters are set to 0 just before each slice of the
-main path (phases 4-7, 9, 10, 10b, 10c, 13-20, 22-34 and 36-39) and read
+main path (phases 4-7, 9, 10, 10b, 10c, 13-20, 19b, 22-34 and 36-39) and read
 just after it, so the counts show that each slice itself went through the
 kernels (`cli_one` through B1 and B2; `sharded_one` through B1, and
 `sharded_two_process`'s ranks, whose counts they return and the slice's
 count adds; phases 13-15, 20, 22, 23, 26-34 and 36-39
 run paths that no kernel serves, and 36-39 must launch none; phases 16, 17
-and 19 through B1 and B1T, phases 18 and 24 through B1, phase 25 through
-B2).
+and 19 through B1 and B1T, phases 18 and 24 through B1, phase 19b through
+B2J, phase 25 through B2).
 Any failed check raises, and the script exits non-zero without printing a
 result.
 
 `python3 chip_smoke.py --b1t-timing [TREE]` times B1T alone at those
 widths, from this checkout's package or from TREE's (an earlier commit
 unpacked with `git archive`), and prints one JSON line. The last line is
-{"ok": true, "device": {...}}; the line before it lists the three kernels.
+{"ok": true, "device": {...}}; the line before it lists the four kernels.
 JAX is neither needed nor imported.
 """
 
@@ -368,6 +384,40 @@ VI_ONE = dict(num_iterations=500, num_mc_samples=32, learning_rate=0.05, num_sam
 # profiled trees are cut at this depth
 PROFILED_TRANSITIONS = 2
 PROFILED_DEPTH = 3
+# nuts_one_transit: bench_nuts's configuration on `one_transit` (2,048
+# chains, target acceptance 0.9, seed 5, float32) at max tree depth 5, every
+# leaf one gradient evaluation through kernel B2J. Its warmup is 20
+# transitions, the fewest at which Stan's schedule (nuts.warmup_windows)
+# has no mass window: with fewer the one window ends at the last warmup
+# transition, the dual averaging restarts there and the step size is 1
+NUTS_ONE_TRANSIT = dict(NUTS_ONE, max_tree_depth=5)
+NUTS_TRANSIT_WARMUP, NUTS_TRANSIT_SAMPLES = 20, 10
+NUTS_STUCK_SHARE = 0.1
+NUTS_START_DRAWS = 4  # prior draws a chain for the start search
+# B2J against its plain version (phase kernels): `one_transit` at the NUTS
+# width (2,048 draws x 16 patients) in float32, both transit models on 64
+# draws x 16 patients in float64. On the lanes that finish in both with the
+# same trip count: the central amounts within B2J_VALUE_RTOL of the lane's
+# largest, the Jacobian within B2J_JAC_RTOL of the largest entry of its
+# lane and rate (the kernel follows the plain version's order of
+# operations; a float32 tangent sums ~10^4 rounded terms over a solve). At
+# most B2J_TRIP_SHARE of the lanes may take another number of trips (the
+# mean of the n + 2 squared errors may round otherwise at n = 3) and
+# B2J_OK_SHARE another `ok`
+B2J_CHECKS = (("one_transit", NUTS_ONE["num_chains"], "float32"),
+              ("one_transit", 64, "float64"), ("two_transit", 64, "float64"))
+B2J_VALUE_RTOL = {"float32": 1e-4, "float64": 1e-10}
+B2J_JAC_RTOL = {"float32": 1e-3, "float64": 1e-8}
+B2J_TRIP_SHARE, B2J_OK_SHARE = 0.01, 0.001
+# gradient_card_vs_cpu for the transit models: prior draws, the card's
+# float64 against the CPU's float64 (the CPU's side computed meanwhile in a
+# process of its own): the finite sets equal, the log-posterior within
+# TRANSIT_GRAD_RTOL of itself on every row, the gradient within
+# TRANSIT_GRAD_RTOL of the row's largest component on at least GRAD_SHARE
+# of the rows (a lane whose step sequence the last bits change moves by up
+# to the solver's rtol, 1e-6)
+TRANSIT_GRAD_DRAWS = 64
+TRANSIT_GRAD_RTOL = 1e-5
 # gradient_card_vs_cpu: prior draws, and the card's float32 against the
 # CPU's float64: the log-posterior within GRAD_RTOL of itself on every row,
 # the gradient within GRAD_RTOL of the row's largest component on at least
@@ -489,9 +539,10 @@ SHARDED_ONE = dict(proposal_type="global_covariance", adapt_proposal_samples=10,
 SHARDED_BANANA = dict(num_chains=6, num_ensembles=3, num_samples=40, use_every_nth=2,
                       adapt_proposal_samples=20, adapt_proposal_times=1, seed=9)
 
-# published peaks of one H100 SXM (NVIDIA's data sheet): float32 outside
-# the tensor cores, and HBM3 bandwidth
+# published peaks of one H100 SXM (NVIDIA's data sheet): float32 and
+# float64 outside the tensor cores, and HBM3 bandwidth
 PEAK_F32_OPS = 67e12
+PEAK_F64_OPS = 34e12
 PEAK_BYTES = 3.35e12
 
 
@@ -740,7 +791,126 @@ def phase_kernels(models, gen):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, ok_mismatches=mismatched,
         bound_ms=b2_bound, bound_by=b2_by,
     )
+
+    # B2J: the gradient mode's transit solve with its Jacobian
+    b2j = {f"{pk_type} {rows} x {NUM_PATIENTS} {dtype}": b2j_against_plain(
+               pk_type, *models[pk_type], rows, getattr(torch, dtype), gen)
+           for pk_type, rows, dtype in B2J_CHECKS}
+    # the kernels line's entry: the NUTS path's width
+    results["transit_dp5_tangent"] = next(iter(b2j.values()))
     return results
+
+
+def b2j_inputs(prior, lik, rows, gen, dtype):
+    """B2J's inputs as the gradient mode makes them from `rows` prior draws
+    (PopPKLikelihood.transit_jacobian_inputs): the lane rates by name, the
+    per-patient tables and the solver's options."""
+    from bcm3_tpu_torch.ops.transit_tangent_kernels import RATES
+
+    pk = lik.model
+    x = prior.sample(gen, (rows,), dtype)
+    tb = pk._tables(x.device, dtype)
+    p, _, _ = pk._patient_params(x)
+    tables, options, rates = pk.transit_jacobian_inputs(p, tb)
+    return dict(zip(RATES, rates)), tables, options
+
+
+def b2j_bound(rates, tables, counts):
+    """B2J's bound for these inputs: its float operations (per lane the
+    set-up, and OPS_PER_TRIP for each trip the lane ran) at the float32 or
+    float64 peak, or the bytes it must move (the rates, the tables, the
+    central amounts, the Jacobian and ok) at the memory rate."""
+    from bcm3_tpu_torch.ops.transit_tangent_kernels import (
+        OPS_LANE_SETUP,
+        OPS_PER_TRIP,
+        num_states,
+    )
+
+    n = num_states(rates)
+    L = counts.numel()
+    P, T = tables["obs_pos"].shape
+    sz = tables["grid"].element_size()
+    ops = L * OPS_LANE_SETUP + int(counts.long().sum()) * OPS_PER_TRIP[n]
+    nbytes = (len(rates) * L * sz + sum(x.numel() * x.element_size() for x in tables.values())
+              + L * T * (1 + len(rates)) * sz + L)
+    peak = PEAK_F32_OPS if sz == 4 else PEAK_F64_OPS
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes"), ops, nbytes
+
+
+def b2j_against_plain(pk_type, prior, lik, rows, dtype, gen):
+    """B2J against its plain version on the card, on the inputs the
+    gradient mode makes from `rows` prior draws: `ok` and the trip counts
+    lane by lane, the central amounts and the Jacobian on the lanes that
+    finish in both with the same trip count (limits B2J_*); the kernel's
+    time by CUDA events, the wrapper's host time a call, the plain
+    version's time, the bound."""
+    import torch
+
+    from bcm3_tpu_torch.ops.transit_tangent_kernels import (
+        transit_jacobian as b2j,
+        transit_jacobian_plain as b2j_plain,
+    )
+
+    rates, tables, options = b2j_inputs(prior, lik, rows, gen, dtype)
+    name = str(dtype).replace("torch.", "")
+    c, jac, ok, n = b2j(rates, **tables, **options, trip_counts=True)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    cp, jac_p, ok_p, n_p = b2j_plain(rates, **tables, **options, trip_counts=True)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    L, T, K = jac.shape
+    ok_mismatches = int((ok != ok_p).sum())
+    other_trips = (ok | ok_p) & (n != n_p)
+    trip_mismatches = int(other_trips.sum())
+    same = ok & ok_p & (n == n_p)
+    assert int(same.sum()) > L // 4, f"B2J {pk_type} {name}: only {int(same.sum())} of {L}"
+    tiny = torch.finfo(dtype).tiny
+    # a Jacobian entry that is not finite must be the plain version's too
+    nonfinite = ~torch.isfinite(jac_p[same]).all(dim=(1, 2))
+    nonfinite_kernel = ~torch.isfinite(jac[same]).all(dim=(1, 2))
+    fin_j = torch.isfinite(jac_p[same])
+    jac_same_set = bool(torch.equal(fin_j, torch.isfinite(jac[same])))
+    dc = (c - cp).abs()[same]
+    dj = torch.where(fin_j, (jac - jac_p).abs()[same], 0.0)
+    value_err = (dc / cp[same].abs().amax(dim=1, keepdim=True).clamp(min=tiny)).max().item()
+    jscale = torch.where(fin_j, jac_p[same].abs(), 0.0).amax(dim=1, keepdim=True)
+    jac_err = (dj / jscale.clamp(min=tiny)).max().item()
+    max_abs = max(dc.max().item(), dj.max().item())
+    bit_for_bit = bool(torch.equal(c[same], cp[same]) and jac_same_set
+                       and torch.equal(jac[same][fin_j], jac_p[same][fin_j]))
+    other = ""
+    if trip_mismatches:
+        both = other_trips & ok & ok_p
+        if both.any():
+            rel = ((c - cp).abs()[both] / cp[both].abs().amax(dim=1, keepdim=True)
+                   .clamp(min=tiny)).max().item()
+            other = f", their central amounts within {rel:.3e} of the lane's largest"
+    ms = cuda_ms(lambda: b2j(rates, **tables, **options), 5)
+    wrapper_us = host_us(lambda: b2j(rates, **tables, **options), reps=20)
+    bound, by, ops, nbytes = b2j_bound(rates, tables, n)
+    log(f"B2J transit_dp5_tangent {pk_type} L={L} T={T} K={K} {name}: ok {int(ok.sum())}/{L}, "
+        f"ok mismatches {ok_mismatches} (limit {int(B2J_OK_SHARE * L)}), lanes with another "
+        f"trip count {trip_mismatches} (limit {int(B2J_TRIP_SHARE * L)}){other}; on the "
+        f"{int(same.sum())} lanes that finish alike: {int(nonfinite.sum())} with a non-finite "
+        f"Jacobian entry in the plain version, {int(nonfinite_kernel.sum())} in the kernel "
+        f"(the same entries: {jac_same_set}, asserted), bit for bit elsewhere {bit_for_bit}, "
+        f"central max rel "
+        f"err {value_err:.3e} (limit {B2J_VALUE_RTOL[name]}), Jacobian max rel err "
+        f"{jac_err:.3e} (limit {B2J_JAC_RTOL[name]}), max abs err {max_abs:.3e}; trips mean "
+        f"{n.double().mean().item():.2f}, max {int(n.max())}; kernel {ms:.4f} ms (CUDA events), "
+        f"wrapper {wrapper_us:.1f} us a call on the host, plain {plain_ms:.1f} ms; bound "
+        f"{bound:.4f} ms by {by} ({ops:.4e} operations, {nbytes} bytes), roofline share "
+        f"{bound / ms:.4f}")
+    assert ok_mismatches <= B2J_OK_SHARE * L
+    assert trip_mismatches <= B2J_TRIP_SHARE * L
+    assert jac_same_set
+    assert value_err <= B2J_VALUE_RTOL[name] and jac_err <= B2J_JAC_RTOL[name]
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                host_us=wrapper_us, value_err=value_err, jac_err=jac_err,
+                trip_mismatches=trip_mismatches, ok_mismatches=ok_mismatches)
 
 
 def phase_slice(pk_type, models):
@@ -1316,11 +1486,10 @@ def phase_poppk_models(workdir, smi):
     """The other PopPK models on the card: `two` and `one_biphasic_uptake`
     through SamplerPT at `one`'s width and depth (cold run, warm wall per
     iteration, busy share under the profiler); `two_transit` at
-    one_transit's width in one evaluation of prior draws (CUDA events), and
-    one more under the profiler for its busy share (its sampler's cold run,
-    76 s of start-position search, is cut for time); then each against the
-    port on the CPU on ORACLE_DRAWS prior draws (two_transit on
-    TWO_TRANSIT_ORACLE_DRAWS)."""
+    one_transit's width in one evaluation of prior draws (CUDA events; its
+    sampler's cold run, 76 s of start-position search, and its profile are
+    cut for time); then each against the port on the CPU on ORACLE_DRAWS
+    prior draws (two_transit on TWO_TRANSIT_ORACLE_DRAWS)."""
     import numpy as np
     import torch
 
@@ -1342,13 +1511,11 @@ def phase_poppk_models(workdir, smi):
             torch.cuda.synchronize()
             ms = start.elapsed_time(stop)
             finite = float(torch.isfinite(lp).double().mean())
-            # ~300,000 launches: the device alone is traced (with the host's
-            # operators too, the profile took most of this phase)
-            busy, _, prof_s = device_profile(lambda: lik.log_prob_batched(x))
+            # its profile (busy 1,369.6-1,425.9 ms in PRs 6-13, ~57 s of
+            # tracing ~300,000 launches) is cut for the gradient phases' time
             line = (f"{pk_type}: one evaluation of {NUM_CHAINS * E} prior draws x "
                     f"{NUM_PATIENTS} patients: {ms:.1f} ms (CUDA events), {finite:.4f} of "
-                    f"them finite, device busy {busy:.1f} ms under the profiler ({prof_s:.1f} "
-                    f"s, the device traced alone), idle share {1.0 - busy / ms:.4f}")
+                    f"them finite")
             evals[pk_type] = NUM_CHAINS * E / ms * 1e3
             del x, lp
         else:
@@ -1683,9 +1850,8 @@ def eigh_backends(hs, smi):
 def device_profile(fn):
     """(device busy ms, device operations, the profile's seconds) of one
     fn() under the profiler, tracing the device only (the host's operator
-    events would double the events to process; two_transit's evaluation
-    launches ~300,000 operations). Raises if the trace holds no device
-    event."""
+    events would double the events to process). Raises if the trace holds
+    no device event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1835,7 +2001,8 @@ def sampler_profile(step, transitions, profiled=True):
               if e.device_type == DeviceType.CUDA and e.name != "chip_smoke.transitions"]
     busy = sum(e.time_range.elapsed_us() for e in device) / 1e3 / transitions
     if busy <= 0:
-        return dict(wall_ms=wall_ms, busy_ms=None, launches=None, b1_ms=None, b1t_ms=None)
+        return dict(wall_ms=wall_ms, busy_ms=None, launches=None, b1_ms=None, b1t_ms=None,
+                    b2j_ms=None)
 
     def share(name):
         return sum(e.time_range.elapsed_us() for e in device
@@ -1843,7 +2010,8 @@ def sampler_profile(step, transitions, profiled=True):
 
     return dict(wall_ms=wall_ms, busy_ms=busy, launches=len(device) / transitions,
                 b1_ms=share("poppk_propagate_kernel"),
-                b1t_ms=share("poppk_propagate_adjoint_kernel"))
+                b1t_ms=share("poppk_propagate_adjoint_kernel"),
+                b2j_ms=share("transit_dp5_tangent_kernel"))
 
 
 def log_profile(name, prof, unit, per_unit, smi):
@@ -1968,6 +2136,103 @@ def phase_nuts_one(models, smi):
                 short_leaves, smi)
     return dict(res=res, ess=ess, profile=prof, leaves=short_leaves, grad_per_s=grad_per_s,
                 leaf_wall_ms=full["wall_ms"] / leaves)
+
+
+def phase_nuts_one_transit(models, smi):
+    """NUTS on `one_transit` at bench_nuts's width: 2,048 chains, target
+    acceptance 0.9, seed 5, float32, max tree depth 5 (NUTS_ONE_TRANSIT),
+    NUTS_TRANSIT_WARMUP + NUTS_TRANSIT_SAMPLES transitions from prior draws
+    of finite density, every leaf one gradient evaluation through kernel
+    B2J (the likelihood's gradient mode). Asserts that the chains move and
+    that the gradient is finite wherever the density is; reports the leaf
+    wall, gradient evaluations/s, ESS/s, and B2J's launches and device ms a
+    leaf."""
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch.ops import transit_tangent_kernels
+    from bcm3_tpu_torch.sampler import NUTSConfig, SamplerNUTS
+
+    prior, lik = models["one_transit"]
+    cfg = NUTSConfig(num_warmup=NUTS_TRANSIT_WARMUP, num_samples=NUTS_TRANSIT_SAMPLES,
+                     device=CARD, dtype=torch.float32, **NUTS_ONE_TRANSIT)
+    s = SamplerNUTS(prior, lik, cfg)
+    C, S, D = cfg.num_chains, cfg.num_samples, prior.num_variables
+    # The chains start at prior draws of finite density: about half of this
+    # trial's prior draws have a lane that fails (density -inf), and such a
+    # chain never moves while its diverging leaves drive the step size's
+    # adaptation to ~4e-10 (measured on one H100; ROADMAP C). The search: the first
+    # C finite of NUTS_START_DRAWS x C draws of the sampler's generator,
+    # scored by its target in one evaluation
+    x0 = prior.sample(s.generator, (NUTS_START_DRAWS * C,), torch.float32)
+    with torch.no_grad():
+        fin0 = torch.isfinite(s.target(s.target.reparam.from_x(x0)))
+    assert int(fin0.sum()) >= C, "nuts_one_transit: too few prior draws of finite density"
+    x0 = x0[fin0.nonzero()[:C, 0]]
+    res = s.run(x0)
+    assert res["samples"].shape == (S * C, 1, D) and np.isfinite(res["samples"]).all()
+    x = res["samples_per_chain"]
+    stuck = (x == x[:1]).all(axis=(0, 2))
+    finite = np.isfinite(res["log_prior"] + res["log_likelihood"]).reshape(S, C)
+    log(f"nuts_one_transit: {int(fin0.sum())} of {NUTS_START_DRAWS * C} prior draws of finite "
+        f"density, the first {C} the starts; {int((~stuck).sum())} of {C} chains moved (limit "
+        f"{int((1 - NUTS_STUCK_SHARE) * C)}), {int((~finite.all(axis=0)).sum())} with a stored "
+        f"density -inf; step size {res['step_size']:.5g}, divergence rate "
+        f"{res['divergences'] / (S * C):.5f}, mean tree depth {res['mean_tree_depth']:.4f}")
+    assert stuck.sum() <= NUTS_STUCK_SHARE * C
+    ess = nuts_ess(res, res["sampling_seconds"])
+    evals = res["gradient_evaluations_per_transition"]
+    grad_per_s = evals * S / res["sampling_seconds"]
+    launches = transit_tangent_kernels.transit_jacobian.launches
+    # the gradient where the chains ended: finite wherever the density is,
+    # on the rows whose rates lie inside float32 (a rate beyond it has a
+    # finite density in which it no longer enters, and a NaN gradient, as in
+    # the JAX package; phase_gradient_card_vs_cpu counts such rows)
+    z, _, _ = s.state
+    v, g = s.target.value_and_grad(z)
+    params, _, _ = lik.model._patient_params(s.target.reparam.to_x(z))
+    fits = torch.ones(C, dtype=torch.bool, device=z.device)
+    for p in params.values():
+        fits &= torch.isfinite(p.reshape(C, -1)).all(dim=1)
+    fin = torch.isfinite(v) & fits
+    bad = int((~torch.isfinite(g[fin]).all(dim=1)).sum())
+    log(f"nuts_one_transit: {C} chains, {cfg.num_warmup} warmup + {S} sampling transitions at "
+        f"max depth {cfg.max_tree_depth}, run {res['elapsed_seconds']:.3f} s, sampling "
+        f"{res['sampling_seconds']:.3f} s; ESS per chain {ess['ess_per_chain_mean']:.4f} of "
+        f"{S}, ESS/s {ess['ess_per_sec']:.1f} (worst variable {ess['ess_min_var_per_sec']:.1f}; "
+        f"over the chains that moved {ess['moving_ess_per_sec']:.1f}); divergence rate "
+        f"{res['divergences'] / (S * C):.5f}; mean tree depth {res['mean_tree_depth']:.4f}; "
+        f"step size {res['step_size']:.5g}; {evals:.2f} gradient evaluations a transition, "
+        f"{grad_per_s:.1f} gradient evaluations/s; B2J launches {launches} in the run "
+        f"({s.target.gradient_evaluations} gradient evaluations); at the run's end "
+        f"{int(fin.sum())} rows of finite density with rates inside float32, {bad} of them with "
+        f"a non-finite gradient (limit 0); on {smi}")
+    assert bad == 0 and int(fin.sum()) >= C // 2
+    # the wall of a leaf in the run's sampling loop; the profile from where
+    # the run ended, on trees cut at PROFILED_DEPTH (a leaf runs the same
+    # operations at any depth, and the trace of full trees takes long to
+    # process)
+    leaf_wall = res["sampling_seconds"] * 1e3 / (evals * S)
+    short = SamplerNUTS(prior, lik, dataclasses.replace(cfg, max_tree_depth=PROFILED_DEPTH))
+    draws = short.draws(C, D, torch.float32)
+    _, lp, g = s.state
+    prof = sampler_profile(
+        lambda: short.transition(z, lp, g, s.step_size, s.inv_mass, *draws),
+        PROFILED_TRANSITIONS)
+    leaves = short.target.gradient_evaluations / (2 * PROFILED_TRANSITIONS + 1)
+    if prof["busy_ms"] is None:
+        log(f"nuts_one_transit: wall {leaf_wall:.3f} ms a leaf in the sampling loop; the "
+            f"profile (trees cut at depth {PROFILED_DEPTH}) saw no device time; on {smi}")
+    else:
+        log(f"nuts_one_transit: wall {leaf_wall:.3f} ms a leaf in the sampling loop; profile "
+            f"(trees cut at depth {PROFILED_DEPTH}, {leaves:.2f} leaves a transition): wall "
+            f"{prof['wall_ms'] / leaves:.3f} ms a leaf, device busy "
+            f"{prof['busy_ms'] / leaves:.3f} ms a leaf (idle share "
+            f"{1.0 - prof['busy_ms'] / prof['wall_ms']:.4f}), {prof['launches'] / leaves:.1f} "
+            f"device launches a leaf, of which B2J one, {prof['b2j_ms'] / leaves:.4f} ms a leaf; "
+            f"on {smi}")
+    return dict(res=res, ess=ess, profile=prof, leaves=leaves, grad_per_s=grad_per_s,
+                leaf_wall_ms=leaf_wall)
 
 
 def phase_hmc_one(models, smi):
@@ -2215,11 +2480,13 @@ def b1t_widths():
             ("vi", VI_ONE["num_mc_samples"], torch.float64))
 
 
-def phase_gradient_card_vs_cpu(models, smi):
+def phase_gradient_card_vs_cpu(models, smi, transit_reference):
     """The card's float32 log-posterior and gradient in z (through B1 and
     B1T) against the port's CPU float64 (plain versions) on GRAD_DRAWS
-    prior draws; then B1T against its plain version at the NUTS path's
-    width (2,048 chains x 16 patients) and at the PT path's (65,536)."""
+    prior draws; the transit models' through B2J
+    (`transit_gradient_card_vs_cpu`); then B1T against its plain version
+    at the NUTS path's width (2,048 chains x 16 patients) and at the PT
+    path's (65,536)."""
     import numpy as np
     import torch
 
@@ -2252,9 +2519,101 @@ def phase_gradient_card_vs_cpu(models, smi):
         f"{GRAD_RTOL} of the row's largest component (limit {GRAD_SHARE}); on {smi}")
     assert both.sum() >= len(x) // 4 and flips == 0
     assert rel_v.max() <= GRAD_RTOL and ok_g >= GRAD_SHARE
+    transit_gradient_card_vs_cpu(models, smi, transit_reference)
     gen = torch.Generator(device=CARD).manual_seed(6)
     return {name: b1t_against_plain(name, b1t_inputs(models, rows, gen, dtype), smi)
             for name, rows, dtype in b1t_widths()}
+
+
+def transit_grad_rows(prior, lik):
+    """The log-posterior of a transit model and the z of its
+    TRANSIT_GRAD_DRAWS prior draws (float64, on the CPU)."""
+    import torch
+
+    from bcm3_tpu_torch.sampler.hmc import LogPosterior
+
+    target = LogPosterior(prior, lik)
+    x = prior.sample(torch.Generator().manual_seed(5), (TRANSIT_GRAD_DRAWS,), torch.float64)
+    return target, target.reparam.from_x(x)
+
+
+def transit_grad_cpu_reference(workdir, path):
+    """The CPU's side of `transit_gradient_card_vs_cpu`, run in a process
+    of its own from the start of the run: the float64 log-posterior and
+    its gradient in z for each transit model (the gradient mode's plain
+    version), into `path` (.npz)."""
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(2)  # the card's phases keep a core busy launching
+    out = {}
+    for pk_type in ("one_transit", "two_transit"):
+        target, z = transit_grad_rows(*build_model(pk_type, workdir))
+        v, g = target.value_and_grad(z)
+        out[f"{pk_type}_value"], out[f"{pk_type}_grad"] = v.numpy(), g.numpy()
+    np.savez(path + ".tmp.npz", **out)
+    os.replace(path + ".tmp.npz", path)
+
+
+def start_transit_grad_cpu_reference(workdir):
+    """The transit gradients' CPU reference process (spawned: this one has
+    CUDA state) and its result file."""
+    import multiprocessing
+
+    sub = os.path.join(workdir, "transit_grad_cpu")
+    os.makedirs(sub, exist_ok=True)
+    path = os.path.join(sub, "reference.npz")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=transit_grad_cpu_reference, args=(sub, path), daemon=True)
+    proc.start()
+    return proc, path
+
+
+def transit_gradient_card_vs_cpu(models, smi, reference):
+    """The transit models' log-posterior and gradient in z (the gradient
+    mode: B2J on the card) on TRANSIT_GRAD_DRAWS prior draws: the card's
+    float64 against the CPU's float64 (`reference`: its process and file,
+    waited for here), within TRANSIT_GRAD_RTOL; the card's float32 against
+    the same, reported."""
+    import numpy as np
+    import torch
+
+    proc, path = reference
+    t = time.perf_counter()
+    proc.join(timeout=600)
+    assert proc.exitcode == 0, f"the transit gradients' CPU reference failed: {proc.exitcode}"
+    waited = time.perf_counter() - t
+    ref = np.load(path)
+    for pk_type in ("one_transit", "two_transit"):
+        target, z = transit_grad_rows(*models[pk_type])
+        v_cpu, g_cpu = ref[f"{pk_type}_value"], ref[f"{pk_type}_grad"]
+        fin_cpu = np.isfinite(v_cpu)
+        lines = []
+        for dtype in (torch.float64, torch.float32):
+            v, g = (a.double().cpu().numpy()
+                    for a in target.value_and_grad(z.to(CARD, dtype)))
+            fin = np.isfinite(v)
+            both = fin & fin_cpu
+            flips = int((fin != fin_cpu).sum())
+            rel_v = np.abs(v[both] - v_cpu[both]) / np.abs(v_cpu[both])
+            norm = np.abs(g_cpu[both]).max(axis=1)
+            rel_g = np.abs(g[both] - g_cpu[both]).max(axis=1) / norm
+            g_nonfinite = int((~np.isfinite(g[both])).any(axis=1).sum())
+            rtol = TRANSIT_GRAD_RTOL if dtype == torch.float64 else GRAD_RTOL
+            share = float((rel_g <= rtol).mean())
+            lines.append(f"{str(dtype)[6:]}: {int(both.sum())}/{len(v)} rows finite on both, "
+                         f"{flips} finite-set flips, log-posterior max rel err {rel_v.max():.3e}, "
+                         f"gradient max rel err {rel_g.max():.3e} (median "
+                         f"{np.median(rel_g):.3e}), {share:.4f} of rows within {rtol} of the "
+                         f"row's largest component, {g_nonfinite} rows with a non-finite "
+                         f"gradient")
+            if dtype == torch.float64:
+                assert both.sum() >= len(v) // 4 and flips <= 1 and g_nonfinite == 0
+                assert rel_v.max() <= TRANSIT_GRAD_RTOL and share >= GRAD_SHARE
+        log(f"gradient card vs CPU on `{pk_type}` (the gradient mode, B2J; the CPU's float64 "
+            f"from its own process, waited {waited:.1f} s): " + "; ".join(lines)
+            + f" (float64 asserted: flips <= 1, values within {TRANSIT_GRAD_RTOL}, gradients "
+            f"on >= {GRAD_SHARE} of rows; float32 reported); on {smi}")
 
 
 def b1t_timing(tree):
@@ -4437,10 +4796,12 @@ def main(workdir):
     smi = timed("environment", phase_environment)
     import torch
 
-    from bcm3_tpu_torch.ops import poppk_kernels, transit_kernels
+    from bcm3_tpu_torch.ops import poppk_kernels, transit_kernels, transit_tangent_kernels
 
     timed("build", phase_build)
-    models = {k: build_model(k, workdir) for k in ("one", "one_transit")}
+    models = {k: build_model(k, workdir) for k in ("one", "one_transit", "two_transit")}
+    # the CPU's side of the transit gradients' check runs meanwhile
+    transit_reference = start_transit_grad_cpu_reference(workdir)
     single = {k: pk_single_model(k, workdir) for k in ("one", "two", "one_transit")}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
@@ -4449,7 +4810,8 @@ def main(workdir):
 
     counters = {"poppk_propagate": poppk_kernels.propagate_intervals_one_compartment,
                 "transit_dp5": transit_kernels.transit_solve,
-                "poppk_propagate_adjoint": poppk_kernels.propagate_intervals_adjoint}
+                "poppk_propagate_adjoint": poppk_kernels.propagate_intervals_adjoint,
+                "transit_dp5_tangent": transit_tangent_kernels.transit_jacobian}
     paths = {}
 
     def main_path(name, kernels, fn, *args):
@@ -4505,6 +4867,9 @@ def main(workdir):
         "hmc_one": main_path("hmc_one", both, phase_hmc_one, models, smi),
         "smc_one": main_path("smc_one", ("poppk_propagate",), phase_smc_one, models, smi),
         "vi_one": main_path("vi_one", both, phase_vi_one, models, smi),
+        # NUTS on one_transit differentiates through B2J (the gradient mode)
+        "nuts_one_transit": main_path("nuts_one_transit", ("transit_dp5_tangent",),
+                                      phase_nuts_one_transit, models, smi),
     }
     torch.cuda.empty_cache()
     main_path("banana_gradient", (), phase_banana_gradient, smi)
@@ -4552,7 +4917,8 @@ def main(workdir):
     timed("em_card_vs_cpu", phase_em, adapted, smi)
     for pk_type in ("one", "one_transit"):
         timed(f"card_vs_cpu_{pk_type}", phase_oracle, pk_type, workdir)
-    b1t = timed("gradient_card_vs_cpu", phase_gradient_card_vs_cpu, models, smi)
+    b1t = timed("gradient_card_vs_cpu", phase_gradient_card_vs_cpu, models, smi,
+                transit_reference)
     kernels["poppk_propagate_adjoint"] = b1t["pt"]
     log("phase seconds: " + json.dumps({k: round(v, 3) for k, v in phase_times.items()}))
     log("slice evals/s: " + json.dumps(evals) + f" on {smi}")
@@ -4570,6 +4936,11 @@ def main(workdir):
                         stuck_chains=samplers["hmc_one"]["ess"]["stuck_chains"],
                         leapfrog_steps_per_sec=samplers["hmc_one"]["steps_per_s"]),
         "smc_one": dict(evals_per_second=samplers["smc_one"]["evals_per_second"]),
+        "nuts_one_transit": dict(
+            ess_per_sec=samplers["nuts_one_transit"]["ess"]["ess_per_sec"],
+            stuck_chains=samplers["nuts_one_transit"]["ess"]["stuck_chains"],
+            gradient_evaluations_per_sec=samplers["nuts_one_transit"]["grad_per_s"],
+            leaf_wall_ms=samplers["nuts_one_transit"]["leaf_wall_ms"]),
         "b1t_device_ms": {k: v["ms"] for k, v in b1t.items()},
         "b1t_wrapper_host_us": {k: v["host_us"] for k, v in b1t.items()},
     }) + f" on {smi}")
@@ -4583,6 +4954,11 @@ def main(workdir):
             "bcm3_tpu_torch/csrc/poppk_propagate.cu",
             "the reverse mode of bcm3_tpu/ops/poppk_pallas.py:82, which the JAX package "
             "differentiates through lax.scan in bcm3_tpu/likelihoods/poppk.py:617"),
+        "transit_dp5_tangent": (
+            "bcm3_tpu_torch/csrc/transit_dp5_tangent.cu",
+            "no Pallas kernel: the derivative of bcm3_tpu/ode/dp5.py:234 as "
+            "bcm3_tpu/likelihoods/poppk.py:500-613 calls it, which the JAX package's "
+            "gradient samplers take by XLA's reverse mode"),
     }
     log(json.dumps({"kernels": [
         {
@@ -4596,10 +4972,11 @@ def main(workdir):
             "plain_ms": kernels[name]["plain_ms"],
             "bound_ms": kernels[name]["bound_ms"],
             "bound_by": kernels[name]["bound_by"],
-            # no single PyTorch call computes any of the three functions
+            # no single PyTorch call computes any of the four functions
             "library_ms": None,
         }
-        for name in ("poppk_propagate", "transit_dp5", "poppk_propagate_adjoint")
+        for name in ("poppk_propagate", "transit_dp5", "poppk_propagate_adjoint",
+                     "transit_dp5_tangent")
     ]}))
     print(json.dumps({
         "ok": True,

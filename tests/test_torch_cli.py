@@ -27,6 +27,7 @@ import h5py
 import jax
 import numpy as np
 import pytest
+import torch
 
 from bcm3_tpu import cli as jax_cli
 from bcm3_tpu.io.bundler import load_bundle as jax_load_bundle
@@ -293,3 +294,42 @@ def test_other_samplers_write_the_jax_layout(tmp_path, stype):
         pred = f["predictions/log_likelihood"][:]
     half = np.arange(rows // 2, rows)
     np.testing.assert_allclose(pred[half, 0], res["log_likelihood"][half, 0], rtol=1e-10)
+
+
+@pytest.mark.parametrize("stype", ["hmc", "nuts", "vi"])
+def test_gradient_samplers_take_a_transit_model(tmp_path, stype):
+    """`run` with sampler.type hmc, nuts or vi on a transit PopPK model
+    (the gradient mode, B2J's plain version here) writes output.nc, and its
+    stored log-likelihoods are the model's own (the gradient mode's values
+    are the eager solve's bit for bit). A budget of 128 trips (these
+    trajectories take tens) keeps the CPU's solves short."""
+    from bcm3_tpu_torch import VariableSet as PVariableSet
+    from bcm3_tpu_torch import create_likelihood
+
+    d = str(tmp_path)
+    trial, _ = synthesize_trial(num_patients=4, num_timepoints=6, seed=5)
+    pk = os.path.join(d, "pkdata.nc")
+    trial.save(pk, "TRIAL1", "lapatinib")
+    prior_xml, lik_xml = os.path.join(d, "prior.xml"), os.path.join(d, "likelihood.xml")
+    write_poppk_prior_xml(prior_xml, 4, "two_transit")
+    write_poppk_likelihood_xml(lik_xml, pk, "TRIAL1", "lapatinib", "two_transit")
+    tree = ET.parse(lik_xml)
+    tree.getroot().find("pk_model").set("solver_trips", "128")
+    tree.write(lik_xml)
+    section, rows = {
+        "hmc": ("[hmcsampler]\nnum_chains=2\nnum_warmup=0\nnum_leapfrog_steps=1\n", 4),
+        "nuts": ("[nutssampler]\nnum_chains=2\nnum_warmup=0\nmax_tree_depth=2\n", 4),
+        "vi": ("[visampler]\nnum_iterations=2\nnum_mc_samples=4\n", 2),
+    }[stype]
+    cfg = os.path.join(d, "config.txt")
+    with open(cfg, "w") as f:
+        f.write(f"[sampler]\ntype={stype}\nnum_samples=2\nrngseed=3\n\n{section}")
+    out = os.path.join(d, "out")
+    assert cli.main(["-c", cfg, "--prior", prior_xml, "--likelihood", lik_xml,
+                     "--output.folder", out, *PORT]) == 0
+    res = load_results(os.path.join(out, "output.nc"))
+    vs = PVariableSet.from_xml(prior_xml)
+    assert res["samples"].shape == (rows, 1, vs.num_variables)
+    lik = create_likelihood(lik_xml, vs)
+    x = torch.as_tensor(res["samples"][:, 0, :])
+    np.testing.assert_array_equal(res["log_likelihood"][:, 0], lik.log_prob_batched(x).numpy())

@@ -36,7 +36,12 @@ Each kernel is held to its plain PyTorch version on the same inputs:
   take the same step sequence: `ok` and the trip counts are equal on
   every lane, and central is bit-identical on the lanes that finish;
 - B1 and B2 at one patient (P = 1, the single-patient likelihood's
-  shape): bit for bit.
+  shape): bit for bit;
+- B2J, the transit solve with its Jacobian (float32 and float64, one and
+  two transit compartments): `ok` on every lane, the trip counts, the
+  central amounts and the Jacobian within chip_smoke.py's B2J limits; the
+  transit models' posterior gradient on the card (the gradient mode)
+  equals the CPU's, and a short NUTS run launches B2J.
 
 The sharded sampler in a one-rank NCCL group equals the unsharded run on
 the card bit for bit.
@@ -57,6 +62,11 @@ from bcm3_tpu_torch.ops.transit_kernels import (
     PARAM_NAMES,
     transit_solve,
     transit_solve_plain,
+)
+from bcm3_tpu_torch.ops.transit_tangent_kernels import (
+    RATES,
+    transit_jacobian,
+    transit_jacobian_plain,
 )
 
 pytestmark = pytest.mark.gpu
@@ -256,6 +266,100 @@ def test_b2_kernel_matches_plain(cuda):
     assert ok.sum().item() > 3000
     assert early[::50].all()  # the stiff lanes
     assert budget.sum().item() >= 10
+
+
+def _b2j_inputs(L, n_states, dtype, device, seed=0):
+    """B2's lanes and tables (`_b2_inputs`) in dtype, the stops of its ten
+    observations, and for n_states = 3 periphery rates spread like the
+    prior's."""
+    params, grid, amt = _b2_inputs(L, device, seed)
+    rng = np.random.default_rng(seed + 1)
+    rates = {k: params[k].to(dtype) for k in RATES[:5]}
+    if n_states == 3:
+        for k in ("kpf", "kpb"):
+            rates[k] = torch.as_tensor(10 ** rng.uniform(-3.0, 0.0, L), dtype=dtype, device=device)
+    obs = np.array([0.5, 1.0, 2.0, 4.0, 8.0, 12.0, 24.0, 96.0, 200.0, 300.0])
+    g = grid.cpu().numpy().astype(np.float64)
+    # an observation comes before a dose at the same time (the stable sort)
+    pos = np.stack([np.searchsorted(row, obs, side="left") for row in g])
+    tables = dict(grid=grid.to(dtype), amt=amt.to(dtype), dose0=params["dose0"].to(dtype),
+                  obs_pos=torch.as_tensor(pos, dtype=torch.int64, device=device))
+    return rates, tables
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_states", [2, 3])
+def test_b2j_kernel_matches_plain(cuda, n_states, dtype):
+    """B2J against its plain version on 4,000 lanes that end every way a
+    lane can (B2's inputs): one launch, `ok` on every lane, the trip counts
+    on the lanes that finish (at most 1% may differ: the kernel sums the
+    mean square of the errors in torch's order on the card, and a last
+    bit can still move a step), and on the others the central amounts
+    within 1e-4 (float32) or 1e-10 (float64) of the lane's largest and the
+    Jacobian within 1e-3 or 1e-8 of the largest entry of its lane and rate,
+    with the same non-finite entries; failed lanes NaN, with a zero
+    Jacobian (chip_smoke.py's B2J limits)."""
+    rates, tables = _b2j_inputs(4000, n_states, dtype, cuda, seed=5)
+    before = transit_jacobian.launches
+    c, jac, ok, n = transit_jacobian(rates, **tables, **_B2_KW, trip_counts=True)
+    torch.cuda.synchronize()
+    assert transit_jacobian.launches == before + 1
+    assert jac.shape == (4000, 10, 5 if n_states == 2 else 7) and jac.is_cuda
+    cp, jp, okp, n_p = transit_jacobian_plain(rates, **tables, **_B2_KW, trip_counts=True)
+    assert torch.equal(ok, okp) and ok.sum().item() > 3000
+    assert torch.isnan(c[~ok]).all() and (jac[~ok] == 0).all()
+    same = ok & (n == n_p)
+    assert (ok & ~same).sum().item() <= 0.01 * ok.sum().item()
+    vtol, jtol = (1e-4, 1e-3) if dtype == torch.float32 else (1e-10, 1e-8)
+    peak = cp[same].abs().amax(dim=1, keepdim=True)
+    assert ((c[same] - cp[same]).abs() <= vtol * peak).all()
+    fin = torch.isfinite(jp[same])
+    assert torch.equal(fin, torch.isfinite(jac[same]))
+    scale = torch.where(fin, jp[same].abs(), 0.0).amax(dim=1, keepdim=True)
+    err = torch.where(fin, (jac[same] - jp[same]).abs(), 0.0)
+    assert (err <= jtol * scale).all()
+
+
+def test_transit_gradient_on_the_card(cuda, tmp_path):
+    """Both transit models on the card in the gradient mode (B2J): the
+    posterior's value and gradient in z in float64 equal the CPU's (its
+    plain version), and a short NUTS run in float32 launches B2J and emits
+    finite rows."""
+    from bcm3_tpu_torch import Prior, VariableSet
+    from bcm3_tpu_torch.likelihoods import Likelihood
+    from bcm3_tpu_torch.likelihoods.poppk import PopPKLikelihood
+    from bcm3_tpu_torch.likelihoods.poppk_synth import synthesize_trial, write_poppk_prior_xml
+    from bcm3_tpu_torch.sampler import NUTSConfig, SamplerNUTS
+    from bcm3_tpu_torch.sampler.hmc import LogPosterior
+
+    P = 4
+    for pk_type in ("one_transit", "two_transit"):
+        path = str(tmp_path / f"prior_{pk_type}.xml")
+        write_poppk_prior_xml(path, P, pk_type)
+        vs = VariableSet.from_xml(path)
+        prior = Prior.from_xml(path, vs)
+        trial, _ = synthesize_trial(num_patients=P, num_timepoints=8, seed=3)
+        pk = PopPKLikelihood(vs, trial, pk_type, "lapatinib")
+        lik = Likelihood("pop_pk_trajectory", pk.log_prob_batched, model=pk)
+        target = LogPosterior(prior, lik)
+        z = target.reparam.from_x(prior.sample(torch.Generator().manual_seed(1), (16,)))
+        v_cpu, g_cpu = target.value_and_grad(z)
+        before = transit_jacobian.launches
+        v, g = target.value_and_grad(z.to(cuda))
+        assert transit_jacobian.launches == before + 1
+        fin = torch.isfinite(v_cpu)
+        assert fin.sum().item() >= 4 and torch.equal(torch.isfinite(v.cpu()), fin)
+        torch.testing.assert_close(v.cpu()[fin], v_cpu[fin], rtol=1e-10, atol=0)
+        scale = g_cpu[fin].abs().amax(dim=1, keepdim=True)
+        torch.testing.assert_close(g.cpu()[fin] / scale, g_cpu[fin] / scale, rtol=1e-6,
+                                   atol=1e-6)
+        before = transit_jacobian.launches
+        cfg = NUTSConfig(num_samples=2, num_warmup=2, num_chains=32, max_tree_depth=3, seed=2,
+                         device="cuda", dtype=torch.float32)
+        res = SamplerNUTS(prior, lik, cfg).run()
+        assert transit_jacobian.launches > before
+        assert res["samples"].shape == (2 * 32, 1, vs.num_variables)
+        assert np.isfinite(res["samples"]).all()
 
 
 @pytest.mark.parametrize("L", [4, 100])

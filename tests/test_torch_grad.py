@@ -17,8 +17,10 @@
   a constant cannot come back unnoticed.
 - Gradients are finite wherever the log-density is (the double-where
   rule), on prior draws of every model above.
-- The gradient samplers refuse the transit models (no reverse mode of
-  kernel B2 yet, ROADMAP B9); SMC takes them.
+- HMC, NUTS, VI and SMC are built on the transit models (one_transit,
+  two_transit) and take two steps each with chains (or VI's parameters)
+  moving: the gradient samplers through the likelihood's gradient mode
+  (kernel B2J's plain version here), SMC through log_prob_batched.
 """
 
 import os
@@ -281,18 +283,68 @@ def test_likelihood_gradient_through_the_function(tmp_path, monkeypatch):
     assert (g[fin][:, k + 2 :]).abs().max() > 1e-6
 
 
+def _finite_start(target, prior, C, seed=1):
+    """C prior draws of finite log-posterior, in z, with their values and
+    gradients (float64)."""
+    z = target.reparam.from_x(prior.sample(torch.Generator().manual_seed(seed), (4 * C,),
+                                           torch.float64))
+    v, g = target.value_and_grad(z)
+    keep = torch.isfinite(v).nonzero()[:C, 0]
+    assert len(keep) == C
+    return z[keep], v[keep], g[keep]
+
+
 @pytest.mark.parametrize("sampler", ["hmc", "nuts", "vi", "smc"])
-def test_transit_models_need_b2s_adjoint(tmp_path, sampler):
-    (prior, lik), _ = _models(_poppk(tmp_path, "one_transit", T=6))
-    kw = dict(device="cpu")
+@pytest.mark.parametrize("pk_type", ["one_transit", "two_transit"])
+def test_transit_models_need_b2s_adjoint(tmp_path, sampler, pk_type):
+    """Each sampler on a transit model: two steps with chains moving (the
+    gradient samplers differentiate through B2's counterpart with tangents,
+    B2J, in the likelihood's gradient mode). A trip budget of 128 (these
+    trajectories take tens) keeps the CPU's eager solves short."""
+    (prior, lik), _ = _models(_poppk(tmp_path, pk_type, T=6))
+    lik.model.solver_trips = 128
+    C, D, f64 = 4, prior.num_variables, torch.float64
+    kw = dict(device="cpu", dtype=f64)
     if sampler == "smc":
-        s = SamplerSMC(prior, lik, SMCConfig(num_particles=16, **kw))
-        assert s.expected_emitted_samples == 16
+        s = SamplerSMC(prior, lik, SMCConfig(num_particles=4 * C, **kw))
+        x = prior.sample(torch.Generator().manual_seed(1), (4 * C,), f64)
+        llh = s.log_likelihood(x)
+        x, llh = x[torch.isfinite(llh)], llh[torch.isfinite(llh)]
+        lprior = prior.log_pdf(x)
+        chol = 0.1 * s.scaled_cholesky(x)
+        moved = torch.zeros(len(x), dtype=torch.bool)
+        for _ in range(2):
+            normal = torch.randn(x.shape, generator=s.generator, dtype=f64)
+            uniform = torch.rand(len(x), generator=s.generator, dtype=f64)
+            x_new, llh, lprior, _ = s.mutate(x, llh, lprior, 0.5, chol, normal, uniform)
+            moved |= (x_new != x).any(dim=1)
+            x = x_new
+        assert moved.any() and torch.isfinite(llh).all()
         return
-    cls, cfg = {"hmc": (SamplerHMC, HMCConfig), "nuts": (SamplerNUTS, NUTSConfig),
-                "vi": (SamplerVI, VIConfig)}[sampler]
-    with pytest.raises(NotImplementedError, match="ROADMAP B9"):
-        cls(prior, lik, cfg(**kw))
+    if sampler == "vi":
+        s = SamplerVI(prior, lik, VIConfig(num_mc_samples=C, **kw))
+        mu, log_sigma = s.initial_parameters()
+        eps = [torch.randn((C, D), generator=s.generator, dtype=f64) for _ in range(2)]
+        mu2, log_sigma2, elbo = s.fit(mu, log_sigma, eps)
+        assert s.target.gradient_evaluations == 2 and np.isfinite(elbo)
+        assert torch.isfinite(mu2).all() and (mu2 != mu).any() and (log_sigma2 != log_sigma).any()
+        return
+    inv_mass, eps = torch.ones(D, dtype=f64), torch.tensor(1e-3, dtype=f64)
+    if sampler == "hmc":
+        s = SamplerHMC(prior, lik, HMCConfig(num_chains=C, num_leapfrog_steps=2, **kw))
+    else:
+        s = SamplerNUTS(prior, lik, NUTSConfig(num_chains=C, max_tree_depth=2, **kw))
+    z, lp, g = _finite_start(s.target, prior, C)
+    moved = torch.zeros(C, dtype=torch.bool)
+    for _ in range(2):
+        if sampler == "hmc":
+            z_new, lp, g, _, _ = s.step(z, lp, g, eps, inv_mass, *s.draws(C, D, f64))
+        else:
+            z_new, lp, g, _, _, _ = s.transition(z, lp, g, eps, inv_mass, *s.draws(C, D, f64))
+        moved |= (z_new != z).any(dim=1)
+        z = z_new
+    assert moved.all()
+    assert torch.isfinite(lp).all() and torch.isfinite(g).all()
 
 
 @pytest.mark.parametrize("example", ["multimodal_circular_ridge", "multimodal_gaussians",
