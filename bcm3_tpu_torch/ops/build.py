@@ -35,6 +35,20 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",
 )
+# B2J is compiled with contraction on, as torch's own kernels are: under
+# --fmad=false libdevice's float64 pow rounds otherwise than torch's pow on
+# a few inputs in a million. Its own products are written so that they are
+# never fused (transit_dp5_tangent.cu `mul`).
+CONTRACTED = ("transit_dp5_tangent.cu",)
+
+
+def source_flags(src: Path) -> tuple[str, ...]:
+    """nvcc's flags for one source: NVCC_FLAGS, with --fmad=true for the
+    sources in CONTRACTED."""
+    if src.name not in CONTRACTED:
+        return NVCC_FLAGS
+    return tuple("--fmad=true" if f == "--fmad=false" else f for f in NVCC_FLAGS)
+
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -60,11 +74,13 @@ _SIGNATURES = {
     "bcm3_transit_dp5_f32": [_P] * 13
     + [_I32, _I32, _I32, _I32, _F32, _F32, _F32, _F32, _P],
     # ka, ke, kel, k_transit, n_transit, kpf, kpb, dose0, grid, amt,
-    # obs_slot, central, jac, ok, next_lane, lane_trips, lanes, patients,
-    # stops, observations, states, trips, rtol, atol, min_dt, first_dt,
-    # stream
-    "bcm3_transit_dp5_tangent_f32": [_P] * 16 + [_I32] * 6 + [_F64] * 4 + [_P],
-    "bcm3_transit_dp5_tangent_f64": [_P] * 16 + [_I32] * 6 + [_F64] * 4 + [_P],
+    # obs_slot, central, jac, ok, next_lane, lane_trips, warp_slots, lanes,
+    # patients, stops, observations, states, trips, lanes a producer warp,
+    # ring slots, blocks, rtol, atol, min_dt, first_dt, stream
+    "bcm3_transit_dp5_tangent_f32": [_P] * 17 + [_I32] * 9 + [_F64] * 4 + [_P],
+    "bcm3_transit_dp5_tangent_f64": [_P] * 17 + [_I32] * 9 + [_F64] * 4 + [_P],
+    # itemsize, states, patients, stops, ring slots, out (5 int32)
+    "bcm3_transit_dp5_tangent_occupancy": [_I32] * 5 + [_P],
 }
 
 _loaded: ctypes.CDLL | None = None
@@ -87,8 +103,9 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256()
     for src in sources():
+        h.update(" ".join(source_flags(src)).encode())
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libbcm3_kernels_{h.hexdigest()[:16]}.so"
@@ -110,7 +127,7 @@ def build() -> Path:
     t0 = time.perf_counter()
     # one nvcc per source, all started together
     cmds = [
-        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        [nvcc, *source_flags(src), "-c", "-o", str(obj), str(src)]
         for src, obj in zip(sources(), objs)
     ]
     procs = [

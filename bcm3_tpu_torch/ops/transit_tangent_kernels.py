@@ -35,10 +35,16 @@ it with the incoming gradient.
 
 Lane l belongs to patient l % P (the likelihood's patient-minor layout);
 the stop grid, dose amounts and observation positions are per patient.
+
+The kernel's launch plan is decided here, in a plain function the CPU
+tests cover: `launch_plan` (lanes a producer warp, consumer warps, ring
+slots, blocks) from the lanes, the model and the card's occupancy.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -78,6 +84,67 @@ OPS_LANE_SETUP = 25
 # the lane index is int32 and the lane counter overshoots L by at most the
 # card's resident threads
 _MAX_LANES = 2**31 - 2**20
+
+# The kernel's launch plan (csrc/transit_dp5_tangent.cu): a block is one
+# producer warp, which runs the primal solve of up to 32 lanes, and a
+# consumer warp a tangent direction, handed over through a ring of
+# RING_SLOTS trip records in shared memory; LANES_PER_WARP the producer
+# warp's choices.
+RING_SLOTS = 2
+LANES_PER_WARP = (32, 16, 8)
+# shared memory a block may use on an H100: the ring and the stop tables
+# must fit in it (at bench.py's 16 patients x 38 stops they take 28-62 KB)
+SHARED_LIMIT = 232_448
+
+
+def record_bytes(n, itemsize):
+    """Bytes of one ring slot (csrc's Record<N>): 32 lanes of the lane's
+    rates, the trip's fields and seven stages' fields in the dtype, and
+    four int fields."""
+    lane = 8 if n == 3 else 6
+    fields = lane + 5 + 4 * n + 7 * (4 + 2 * n)
+    return 32 * (fields * itemsize + 4 * 4)
+
+
+def shared_bytes(n, itemsize, P, S, slots=RING_SLOTS):
+    """A block's shared memory: the ring and the per-patient stop tables
+    (grid and dose amounts in the dtype, initial doses, stop ->
+    observation as int32)."""
+    return slots * record_bytes(n, itemsize) + (2 * P * S + P) * itemsize + P * S * 4
+
+
+def launch_plan(L, n, sms, blocks_per_sm):
+    """B2J's launch plan for L lanes of a model of n states, on a card of
+    `sms` SMs that holds `blocks_per_sm` of the kernel's blocks each: 32
+    lanes a producer warp, or 16 or 8 where fewer blocks would leave SMs
+    without one; consumer warps a block; ring slots; blocks, persistent
+    and at most what is resident (the lane counter refills the threads
+    whose lanes end)."""
+    K = 5 if n == 2 else 7
+    lanes = next((w for w in LANES_PER_WARP[:-1] if -(-L // w) >= sms), LANES_PER_WARP[-1])
+    return dict(lanes_per_warp=lanes, consumer_warps=K, slots=RING_SLOTS, threads=32 * (1 + K),
+                blocks=max(1, min(-(-L // lanes), blocks_per_sm * sms)))
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(device_index, itemsize, n, P, S):
+    """The card's SMs and the kernel instance's resident blocks an SM at
+    this table size (asked of the CUDA runtime once per shape); raises if
+    the compiled block is not the plan's."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device_index):
+        code = build.library().bcm3_transit_dp5_tangent_occupancy(itemsize, n, P, S, RING_SLOTS,
+                                                                   out)
+    build.check_launch("transit_dp5_tangent occupancy", code)
+    per_sm, sms, threads, smem, record = out
+    want = (launch_plan(1, n, 1, 1)["threads"], shared_bytes(n, itemsize, P, S),
+            record_bytes(n, itemsize))
+    if (threads, smem, record) != want:
+        raise RuntimeError(f"transit_dp5_tangent: the kernel's block (threads, shared bytes, "
+                           f"record bytes) {(threads, smem, record)}, the plan's {want}")
+    if per_sm < 1:
+        raise RuntimeError(f"transit_dp5_tangent: no block fits an SM ({smem} shared bytes)")
+    return sms, per_sm
 
 
 def log_floor_is_zero(dtype) -> bool:
@@ -311,15 +378,23 @@ def transit_jacobian_plain(
 
 def transit_jacobian(
     rates, grid, amt, dose0, obs_pos, trips=768, rtol=1e-6, atol=1e-4, min_dt=1e-5,
-    first_dt=1e-2, trip_counts=False,
+    first_dt=1e-2, trip_counts=False, warp_slots=None,
 ):
     """B2J: the transit solve's central amounts at the observations, ok,
     and their Jacobian in the lane rates (see `transit_jacobian_plain` for
     the arguments and results). The CUDA kernel on a CUDA device, the plain
     version on the CPU; on a CUDA tensor it launches the kernel or raises.
     On CUDA every input must be contiguous and of the grid's dtype, float32
-    or float64, and obs_pos int64."""
+    or float64, and obs_pos int64, with tables that fit in shared memory
+    beside the ring (`shared_bytes` <= SHARED_LIMIT);
+    `warp_slots`, a (1,) int64 CUDA tensor, is then increased by the trip
+    records the kernel's producer warps wrote (for the slot efficiency
+    sum(trips) / (lanes a producer warp * slots); the plain version has no
+    warps). The launch plan is `launch_plan`'s and is kept in
+    `transit_jacobian.last_plan`."""
     if grid.device.type == "cpu":
+        if warp_slots is not None:
+            raise ValueError("warp_slots counts the CUDA kernel's warps")
         return transit_jacobian_plain(rates, grid, amt, dose0, obs_pos, trips, rtol, atol,
                                       min_dt, first_dt, trip_counts)
     n, names, L, P, S, T = _check_tables(rates, grid, obs_pos)
@@ -342,6 +417,14 @@ def transit_jacobian(
             raise ValueError(f"{name} must be contiguous")
     if L > _MAX_LANES:
         raise ValueError(f"{L} lanes: the kernel takes at most {_MAX_LANES}")
+    if shared_bytes(n, grid.element_size(), P, S) > SHARED_LIMIT:
+        raise ValueError(f"{P} x {S} stops: the stop tables and the ring do not fit in a "
+                         f"block's {SHARED_LIMIT} bytes of shared memory")
+    if warp_slots is not None and (
+        warp_slots.device != dev or warp_slots.dtype != torch.int64
+        or tuple(warp_slots.shape) != (1,)
+    ):
+        raise ValueError(f"warp_slots must be a (1,) int64 tensor on {dev}")
     # each stop's observation index, -1 at a stop that is only a dose
     obs_slot = torch.full((P, S), -1, dtype=torch.int32, device=dev)
     obs_slot.scatter_(1, obs_pos, torch.arange(T, dtype=torch.int32, device=dev).expand(P, T))
@@ -355,19 +438,25 @@ def transit_jacobian(
           else lib.bcm3_transit_dp5_tangent_f64)
     ptrs = [rates[k].data_ptr() if k in rates else None for k in RATES]
     with torch.cuda.device(dev):
+        sms, per_sm = _occupancy(torch.cuda.current_device(), grid.element_size(), n, P, S)
+        plan = launch_plan(L, n, sms, per_sm)
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(*ptrs, dose0.data_ptr(), grid.data_ptr(), amt.data_ptr(), obs_slot.data_ptr(),
                   central.data_ptr(), jac.data_ptr(), ok.data_ptr(), next_lane.data_ptr(),
                   None if counts is None else counts.data_ptr(),
-                  L, P, S, T, n, int(trips), float(rtol), float(atol), float(min_dt),
-                  float(first_dt), stream)
+                  None if warp_slots is None else warp_slots.data_ptr(),
+                  L, P, S, T, n, int(trips), plan["lanes_per_warp"], plan["slots"],
+                  plan["blocks"], float(rtol), float(atol), float(min_dt), float(first_dt),
+                  stream)
     build.check_launch("transit_dp5_tangent", code)
     transit_jacobian.launches += 1
+    transit_jacobian.last_plan = plan
     return (central, jac, ok, counts) if trip_counts else (central, jac, ok)
 
 
-# kernel launches since the count was last set to 0
+# kernel launches since the count was last set to 0, and the last launch's plan
 transit_jacobian.launches = 0
+transit_jacobian.last_plan = None
 
 
 class TransitCentral(torch.autograd.Function):

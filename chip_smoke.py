@@ -260,7 +260,10 @@ result.
 
 `python3 chip_smoke.py --b1t-timing [TREE]` times B1T alone at those
 widths, from this checkout's package or from TREE's (an earlier commit
-unpacked with `git archive`), and prints one JSON line. The last line is
+unpacked with `git archive`), and prints one JSON line;
+`python3 chip_smoke.py --b2j-timing [TREE]` does the same for B2J at the
+widths of its checks (B2J_CHECKS), with the lanes' trips, the launch plan
+and ptxas's registers and spills of B2J's instances. The last line is
 {"ok": true, "device": {...}}; the line before it lists the four kernels.
 JAX is neither needed nor imported.
 """
@@ -409,6 +412,8 @@ B2J_CHECKS = (("one_transit", NUTS_ONE["num_chains"], "float32"),
 B2J_VALUE_RTOL = {"float32": 1e-4, "float64": 1e-10}
 B2J_JAC_RTOL = {"float32": 1e-3, "float64": 1e-8}
 B2J_TRIP_SHARE, B2J_OK_SHARE = 0.01, 0.001
+# --b2j-timing: launches timed at each width, after a warm-up
+B2J_TIMED = 20
 # gradient_card_vs_cpu for the transit models: prior draws, the card's
 # float64 against the CPU's float64 (the CPU's side computed meanwhile in a
 # process of its own): the finite sets equal, the log-posterior within
@@ -617,7 +622,35 @@ def phase_environment():
     return smi
 
 
+def ptxas_summary(text):
+    """Each kernel instance's registers and spills from ptxas's -v output:
+    {entry function: dict(registers, spill_stores, spill_loads, stack)}."""
+    import re
+
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = dict(registers=None, spill_stores=0, spill_loads=0, stack=0)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and out[name]["registers"] is None:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
+
+
 def phase_build():
+    """Build the kernels and print ptxas's registers and spills of every
+    instance; returns them (`ptxas_summary`)."""
     from bcm3_tpu_torch.ops import build
 
     t0 = time.perf_counter()
@@ -625,9 +658,11 @@ def phase_build():
     build.library()
     seconds = time.perf_counter() - t0
     log(f"build: {path.name} in {seconds:.2f} s (nvcc {build.last_build_seconds})")
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if "entry function" in line or "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    summary = ptxas_summary(path.with_suffix(".log").read_text())
+    for name, r in summary.items():
+        log(f"  ptxas: {name}: {r['registers']} registers, {r['stack']} bytes stack frame, "
+            f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")
+    return summary
 
 
 def b2_inputs(prior, lik, gen):
@@ -891,6 +926,7 @@ def b2j_against_plain(pk_type, prior, lik, rows, dtype, gen):
     ms = cuda_ms(lambda: b2j(rates, **tables, **options), 5)
     wrapper_us = host_us(lambda: b2j(rates, **tables, **options), reps=20)
     bound, by, ops, nbytes = b2j_bound(rates, tables, n)
+    plan = b2j.last_plan
     log(f"B2J transit_dp5_tangent {pk_type} L={L} T={T} K={K} {name}: ok {int(ok.sum())}/{L}, "
         f"ok mismatches {ok_mismatches} (limit {int(B2J_OK_SHARE * L)}), lanes with another "
         f"trip count {trip_mismatches} (limit {int(B2J_TRIP_SHARE * L)}){other}; on the "
@@ -903,7 +939,7 @@ def b2j_against_plain(pk_type, prior, lik, rows, dtype, gen):
         f"{n.double().mean().item():.2f}, max {int(n.max())}; kernel {ms:.4f} ms (CUDA events), "
         f"wrapper {wrapper_us:.1f} us a call on the host, plain {plain_ms:.1f} ms; bound "
         f"{bound:.4f} ms by {by} ({ops:.4e} operations, {nbytes} bytes), roofline share "
-        f"{bound / ms:.4f}")
+        f"{bound / ms:.4f}; launch plan {plan}")
     assert ok_mismatches <= B2J_OK_SHARE * L
     assert trip_mismatches <= B2J_TRIP_SHARE * L
     assert jac_same_set
@@ -2641,6 +2677,60 @@ def b1t_timing(tree):
 
     log(json.dumps({"b1t_timing": out, "tree": tree or ".",
                     "package": os.path.dirname(poppk_kernels.__file__), "device": smi}))
+
+
+def b2j_timing(tree):
+    """`python3 chip_smoke.py --b2j-timing [TREE]`: B2J's times alone, by
+    CUDA events after a warm-up, at the widths of B2J_CHECKS (32,768 lanes
+    in float32 on `one_transit`, 1,024 lanes in float64 on both transit
+    models) on the inputs `b2j_inputs` makes, from this checkout's package
+    or from TREE's (another commit unpacked with `git archive`); one JSON
+    line with, per width, the ms, the bound and its share, the lanes' trips
+    (mean, max, the mean over warps of 32 consecutive lanes of the warp's
+    maximum), the launch plan, and the registers and spills of B2J's
+    instances. Run it in turns over two trees in one call to compare their
+    kernels on one card."""
+    if tree:
+        sys.path.insert(0, os.path.abspath(tree))
+    smi = phase_environment()
+    import inspect
+
+    import torch
+
+    ptxas = {k: v for k, v in phase_build().items() if "transit_dp5_tangent" in k}
+    from bcm3_tpu_torch.ops import transit_tangent_kernels as b2j
+
+    slots_counted = "warp_slots" in inspect.signature(b2j.transit_jacobian).parameters
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        models = {k: build_model(k, tmp) for k in ("one_transit", "two_transit")}
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        for pk_type, rows, dtype in B2J_CHECKS:
+            rates, tables, options = b2j_inputs(*models[pk_type], rows, gen,
+                                                getattr(torch, dtype))
+            _, _, ok, n = b2j.transit_jacobian(rates, **tables, **options, trip_counts=True)
+            ms = cuda_ms(lambda: b2j.transit_jacobian(rates, **tables, **options), B2J_TIMED)
+            bound, by, ops, _ = b2j_bound(rates, tables, n)
+            L = n.numel()
+            warps = n[: L // 32 * 32].reshape(-1, 32).amax(dim=1).double()
+            row = dict(ms=ms, bound_ms=bound, bound_by=by, share=bound / ms, ops=ops, lanes=L,
+                       ok=int(ok.sum()), trips_mean=n.double().mean().item(),
+                       trips_max=int(n.max()), trips_warp_max_mean=warps.mean().item())
+            if slots_counted:
+                slots = torch.zeros(1, dtype=torch.int64, device="cuda")
+                b2j.transit_jacobian(rates, **tables, **options, warp_slots=slots)
+                plan = b2j.transit_jacobian.last_plan
+                # the producer warps' trip records, and the share of their
+                # lanes' slots that held a trip
+                row.update(plan=plan, producer_slots=int(slots),
+                           slots_a_producer_warp=int(slots) / plan["blocks"],
+                           slot_efficiency=int(n.long().sum())
+                           / (plan["lanes_per_warp"] * int(slots)))
+            else:
+                row["plan"] = "a lane a thread, 128 threads a block, blocks min(needed, resident)"
+            out[f"{pk_type} {L} {dtype}"] = row
+    log(json.dumps({"b2j_timing": out, "ptxas": ptxas, "tree": tree or ".",
+                    "package": os.path.dirname(b2j.__file__), "device": smi}))
 
 
 def smc_replicates(prior, lik, device, dtype, seeds):
@@ -4991,6 +5081,8 @@ def main(workdir):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--b1t-timing"]:
         sys.exit(b1t_timing(sys.argv[2] if len(sys.argv) > 2 else None))
+    if sys.argv[1:2] == ["--b2j-timing"]:
+        sys.exit(b2j_timing(sys.argv[2] if len(sys.argv) > 2 else None))
     # the prior XML files of the run live in a directory removed at exit
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         sys.exit(main(tmp))

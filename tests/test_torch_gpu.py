@@ -39,9 +39,14 @@ Each kernel is held to its plain PyTorch version on the same inputs:
   shape): bit for bit;
 - B2J, the transit solve with its Jacobian (float32 and float64, one and
   two transit compartments): `ok` on every lane, the trip counts, the
-  central amounts and the Jacobian within chip_smoke.py's B2J limits; the
-  transit models' posterior gradient on the card (the gradient mode)
-  equals the CPU's, and a short NUTS run launches B2J.
+  central amounts and the Jacobian within chip_smoke.py's B2J limits; at
+  the edges of its launch plan (1 to 8,000 lanes, every number of lanes a
+  producer warp, and a lane refill mid-launch at 100,000 lanes) bit for
+  bit on the lanes that finish alike, float64 included (libdevice's
+  float64 pow rounds as torch's only when built with contraction on,
+  which is why build.py builds B2J so); the transit models' posterior
+  gradient on the card (the gradient mode) equals the CPU's, and a short
+  NUTS run launches B2J.
 
 The sharded sampler in a one-rank NCCL group equals the unsharded run on
 the card bit for bit.
@@ -64,6 +69,7 @@ from bcm3_tpu_torch.ops.transit_kernels import (
     transit_solve_plain,
 )
 from bcm3_tpu_torch.ops.transit_tangent_kernels import (
+    LANES_PER_WARP,
     RATES,
     transit_jacobian,
     transit_jacobian_plain,
@@ -318,6 +324,121 @@ def test_b2j_kernel_matches_plain(cuda, n_states, dtype):
     scale = torch.where(fin, jp[same].abs(), 0.0).amax(dim=1, keepdim=True)
     err = torch.where(fin, (jac[same] - jp[same]).abs(), 0.0)
     assert (err <= jtol * scale).all()
+
+
+def _b2j_lanes(L, n_states, dtype, device, seed):
+    """`_b2j_inputs` at any L: B2's four patients where they divide L, else
+    the first patient's tables for every lane."""
+    rates, tables = _b2j_inputs(L + 1, n_states, dtype, device, seed)
+    # from lane 1 on: lane 0 is one of the stiff lanes
+    rates = {k: v[1:].contiguous() for k, v in rates.items()}
+    if L % 4:
+        tables = {k: v[:1].contiguous() for k, v in tables.items()}
+    return rates, tables
+
+
+def _b2j_bit_for_bit(rates, tables, **extra):
+    """B2J against its plain version: one launch, `ok` on every lane, failed
+    lanes NaN with a zero Jacobian, at most 1% of the finishing lanes with
+    another trip count (test_b2j_kernel_matches_plain's limits), and on
+    the lanes that finish alike the central amounts and the Jacobian bit
+    for bit, with the same non-finite entries. Returns the trip counts."""
+    before = transit_jacobian.launches
+    c, jac, ok, n = transit_jacobian(rates, **tables, **_B2_KW, trip_counts=True, **extra)
+    torch.cuda.synchronize()
+    assert transit_jacobian.launches == before + 1
+    cp, jp, okp, n_p = transit_jacobian_plain(rates, **tables, **_B2_KW, trip_counts=True)
+    assert torch.equal(ok, okp)
+    assert torch.isnan(c[~ok]).all() and (jac[~ok] == 0).all()
+    same = ok & (n == n_p)
+    assert (ok & ~same).sum().item() <= 0.01 * ok.sum().item()
+    fin = torch.isfinite(jp[same])
+    assert torch.equal(fin, torch.isfinite(jac[same]))
+    assert torch.equal(c[same], cp[same])
+    assert torch.equal(jac[same][fin], jp[same][fin])
+    return n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_states", [2, 3])
+def test_b2j_launch_plans_match_plain(cuda, n_states, dtype):
+    """B2J's warp-specialised kernel at the edges of its launch plan: 1,
+    31, 33, 1,000, 1,024, 4,000 and 8,000 lanes, which give every number
+    of lanes a producer warp the plan chooses (8 up to 2,112 lanes on 132
+    SMs, 16, 32), producer warps with idle threads and lanes that are not
+    a multiple of the warp; each against the plain version, bit for bit on
+    the lanes that finish alike."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    widths = {}
+    for L in (1, 31, 33, 1000, 1024, 4000, 8000):
+        rates, tables = _b2j_lanes(L, n_states, dtype, cuda, seed=L)
+        _b2j_bit_for_bit(rates, tables)
+        plan = transit_jacobian.last_plan
+        if L <= 1024:
+            assert plan["blocks"] >= min(sms, -(-L // 8))
+        widths.setdefault(plan["lanes_per_warp"], L)
+    if sms == 132:
+        assert sorted(widths) == sorted(LANES_PER_WARP)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_states", [2, 3])
+def test_b2j_kernel_refills_lanes(cuda, n_states, dtype):
+    """More lanes than the resident blocks' producer threads (100,000
+    lanes): a producer thread whose lane ends takes the next, and its
+    consumer threads follow, mid-launch; bit for bit with the plain
+    version, every trip in a producer warp's record, and fewer records
+    than warps of 32 fixed lanes would write."""
+    rates, tables = _b2j_lanes(100_000, n_states, dtype, cuda, seed=11)
+    slots = torch.zeros(1, dtype=torch.int64, device=cuda)
+    n = _b2j_bit_for_bit(rates, tables, warp_slots=slots)
+    plan = transit_jacobian.last_plan
+    assert plan["blocks"] * plan["lanes_per_warp"] < 100_000
+    assert plan["lanes_per_warp"] * int(slots) >= int(n.long().sum()) > 0
+    static = n.reshape(-1, 32).amax(dim=1).long().sum().item()
+    assert int(slots) < static
+
+
+def test_float64_pow_rounds_as_torch_with_contraction(cuda, tmp_path):
+    """Why build.py compiles B2J with contraction on (CONTRACTED): libdevice's
+    float64 pow, which B2J's step-size controller calls, agrees with
+    torch's pow on the card bit for bit only when compiled as torch's
+    kernels are, with --fmad=true (under --fmad=false a few inputs in a
+    million round otherwise). Prints the mismatches of both builds on 2^22
+    inputs spread over 30 decades."""
+    import ctypes
+    import subprocess
+
+    from bcm3_tpu_torch.ops import build
+
+    src = tmp_path / "pow.cu"
+    src.write_text(
+        "__global__ void k(const double* x, double* o, int n) {\n"
+        "  int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+        "  if (i < n) { o[2 * i] = pow(x[i], -0.2); o[2 * i + 1] = pow(x[i], -1.2); }\n"
+        "}\n"
+        'extern "C" void run(const void* x, void* o, int n) {\n'
+        "  k<<<(n + 255) / 256, 256>>>((const double*)x, (double*)o, n);\n"
+        "}\n")
+    n = 1 << 22
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.exp(torch.empty(n, dtype=torch.float64, device=cuda).uniform_(-60, 10, generator=g))
+    ref = torch.stack([x**-0.2, x**-1.2], dim=1)
+    mismatches = {}
+    for fmad in ("false", "true"):
+        lib = tmp_path / f"pow_{fmad}.so"
+        subprocess.run([build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                        f"--fmad={fmad}", "-Xcompiler", "-fPIC", "-shared", "-o", str(lib),
+                        str(src)], check=True, timeout=300)
+        run = ctypes.CDLL(str(lib)).run
+        run.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        out = torch.empty_like(ref)
+        run(x.data_ptr(), out.data_ptr(), n)
+        torch.cuda.synchronize()
+        mismatches[fmad] = (out != ref).sum(dim=0).tolist()
+    print(f"float64 pow(x, -0.2), pow(x, -1.2): values of {n} that differ from torch's, by "
+          f"--fmad: {mismatches}")
+    assert mismatches["true"] == [0, 0]
 
 
 def test_transit_gradient_on_the_card(cuda, tmp_path):
