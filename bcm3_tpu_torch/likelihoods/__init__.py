@@ -10,7 +10,8 @@ types (``pharmaco_single``, ``pharmaco_population``,
 ``pharmacokinetic_trajectory``), the generic ``ODE`` and ``dll``, and
 the cell likelihoods ``cell_cycle_marker``, ``mitosis_time_estimation``,
 ``incucyte_population`` and ``cell_population``, and ``fISA``: every type
-of the JAX package. `fixed_parameter_likelihood` builds the likelihood of
+of the JAX package. `register_likelihood` adds a type, `available_likelihoods`
+lists them, and `fixed_parameter_likelihood` builds the likelihood of
 `--bcmopt`.
 """
 
@@ -52,9 +53,31 @@ def parse_matrix(s: str) -> np.ndarray:
     return np.array([[float(v) for v in r.split(",")] for r in rows])
 
 
+_REGISTRY: Dict[str, Callable[..., Likelihood]] = {}
+
+
+def register_likelihood(name: str):
+    """Decorator: register `fn(varset, attrs) -> Likelihood` as the factory
+    of likelihood type `name` (bcm3_tpu/likelihoods/__init__.py:54-59), which
+    `create_likelihood` then builds from a likelihood.xml whose type names
+    it or from the bare type name."""
+
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def available_likelihoods():
+    """The registered likelihood types, sorted."""
+    return sorted(_REGISTRY)
+
+
 # attribute parsing and errors as bcm3_tpu/likelihoods/__init__.py:104-156
 
 
+@register_likelihood("banana")
 def _banana(varset: VariableSet, attrs) -> Likelihood:
     dim = int(attrs.get("dimension", varset.num_variables))
     if dim != varset.num_variables:
@@ -66,6 +89,7 @@ def _banana(varset: VariableSet, attrs) -> Likelihood:
     return Likelihood("banana", analytic.make_banana(dim, sd1, sd2), attrs=attrs)
 
 
+@register_likelihood("circular")
 def _circular(varset: VariableSet, attrs) -> Likelihood:
     dim = int(attrs.get("dimension", varset.num_variables))
     if dim != varset.num_variables:
@@ -80,6 +104,7 @@ def _circular(varset: VariableSet, attrs) -> Likelihood:
     )
 
 
+@register_likelihood("multimodal_gaussians")
 def _multimodal(varset: VariableSet, attrs) -> Likelihood:
     if varset.num_variables != 2:
         raise ValueError("multimodal_gaussians requires exactly 2 variables")
@@ -88,6 +113,7 @@ def _multimodal(varset: VariableSet, attrs) -> Likelihood:
     )
 
 
+@register_likelihood("truncated_t")
 def _truncated_t(varset: VariableSet, attrs) -> Likelihood:
     dim = int(attrs["dimensions"])
     if dim != varset.num_variables:
@@ -104,10 +130,12 @@ def _truncated_t(varset: VariableSet, attrs) -> Likelihood:
     )
 
 
+@register_likelihood("dummy")
 def _dummy(varset: VariableSet, attrs) -> Likelihood:
     return Likelihood("dummy", analytic.make_dummy(), attrs=attrs)
 
 
+@register_likelihood("pop_pk_trajectory")
 def _pop_pk(varset: VariableSet, attrs) -> Likelihood:
     from bcm3_tpu_torch.likelihoods.poppk import create_poppk_likelihood
 
@@ -115,6 +143,7 @@ def _pop_pk(varset: VariableSet, attrs) -> Likelihood:
     return Likelihood("pop_pk_trajectory", pk.log_prob_batched, attrs=attrs, model=pk)
 
 
+@register_likelihood("pharmaco_single")
 def _pharmaco_single(varset: VariableSet, attrs) -> Likelihood:
     from bcm3_tpu_torch.likelihoods.pharmaco import create_pharmaco_single
 
@@ -122,6 +151,7 @@ def _pharmaco_single(varset: VariableSet, attrs) -> Likelihood:
     return Likelihood("pharmaco_single", model.log_prob_batched, attrs=attrs, model=model)
 
 
+@register_likelihood("pharmaco_population")
 def _pharmaco_population(varset: VariableSet, attrs) -> Likelihood:
     from bcm3_tpu_torch.likelihoods.pharmaco import create_pharmaco_population
 
@@ -129,6 +159,7 @@ def _pharmaco_population(varset: VariableSet, attrs) -> Likelihood:
     return Likelihood("pharmaco_population", model.log_prob_batched, attrs=attrs, model=model)
 
 
+@register_likelihood("pharmacokinetic_trajectory")
 def _pk_single(varset: VariableSet, attrs) -> Likelihood:
     from bcm3_tpu_torch.likelihoods.pk_single import create_pk_likelihood
 
@@ -136,6 +167,7 @@ def _pk_single(varset: VariableSet, attrs) -> Likelihood:
     return Likelihood("pharmacokinetic_trajectory", pk.log_prob_batched, attrs=attrs, model=pk)
 
 
+@register_likelihood("ODE")
 def _ode_template(varset: VariableSet, attrs) -> Likelihood:
     from bcm3_tpu_torch.likelihoods.ode_template import ODETemplateLikelihood
 
@@ -143,6 +175,7 @@ def _ode_template(varset: VariableSet, attrs) -> Likelihood:
     return Likelihood("ODE", model.log_prob_batched, attrs=attrs, model=model)
 
 
+@register_likelihood("dll")
 def _dll(varset: VariableSet, attrs) -> Likelihood:
     from bcm3_tpu_torch.likelihoods.plugin import load_plugin_log_prob
 
@@ -155,6 +188,7 @@ def _dll(varset: VariableSet, attrs) -> Likelihood:
                       attrs=attrs)
 
 
+@register_likelihood("cell_cycle_marker")
 def _cell_cycle_marker(varset: VariableSet, attrs) -> Likelihood:
     from bcm3_tpu_torch.likelihoods.cellmisc import create_cell_cycle_marker
 
@@ -162,6 +196,7 @@ def _cell_cycle_marker(varset: VariableSet, attrs) -> Likelihood:
     return Likelihood("cell_cycle_marker", model.log_prob_batched, attrs=attrs, model=model)
 
 
+@register_likelihood("mitosis_time_estimation")
 def _mitosis(varset: VariableSet, attrs) -> Likelihood:
     from bcm3_tpu_torch.likelihoods.cellmisc import create_mitosis_time_estimation
 
@@ -170,6 +205,7 @@ def _mitosis(varset: VariableSet, attrs) -> Likelihood:
                       model=model)
 
 
+@register_likelihood("incucyte_population")
 def _incucyte(varset: VariableSet, attrs) -> Likelihood:
     from bcm3_tpu_torch.likelihoods.cellmisc import create_incucyte_population
 
@@ -177,6 +213,7 @@ def _incucyte(varset: VariableSet, attrs) -> Likelihood:
     return Likelihood("incucyte_population", model.log_prob_batched, attrs=attrs, model=model)
 
 
+@register_likelihood("cell_population")
 def _cell_population(varset: VariableSet, attrs) -> Likelihood:
     from bcm3_tpu_torch.cellpop.likelihood import create_cellpop_likelihood
 
@@ -184,31 +221,12 @@ def _cell_population(varset: VariableSet, attrs) -> Likelihood:
     return Likelihood("cell_population", model.log_prob_batched, attrs=attrs, model=model)
 
 
+@register_likelihood("fISA")
 def _fisa(varset: VariableSet, attrs) -> Likelihood:
     from bcm3_tpu_torch.fisa import create_fisa_likelihood
 
     model = create_fisa_likelihood(varset, attrs)
     return Likelihood("fISA", model.log_prob_batched, attrs=attrs, model=model)
-
-
-_REGISTRY: Dict[str, Callable[..., Likelihood]] = {
-    "banana": _banana,
-    "circular": _circular,
-    "multimodal_gaussians": _multimodal,
-    "truncated_t": _truncated_t,
-    "dummy": _dummy,
-    "pop_pk_trajectory": _pop_pk,
-    "pharmaco_single": _pharmaco_single,
-    "pharmaco_population": _pharmaco_population,
-    "pharmacokinetic_trajectory": _pk_single,
-    "ODE": _ode_template,
-    "dll": _dll,
-    "cell_cycle_marker": _cell_cycle_marker,
-    "mitosis_time_estimation": _mitosis,
-    "incucyte_population": _incucyte,
-    "cell_population": _cell_population,
-    "fISA": _fisa,
-}
 
 
 def fixed_parameter_likelihood(
@@ -257,5 +275,5 @@ def create_likelihood(filename_or_type: str, varset: VariableSet, **kwargs) -> L
             for k, v in kwargs.items()
         }
     if ltype not in _REGISTRY:
-        raise ValueError(f"Unknown likelihood type '{ltype}'; available: {sorted(_REGISTRY)}")
+        raise ValueError(f"Unknown likelihood type '{ltype}'; available: {available_likelihoods()}")
     return _REGISTRY[ltype](varset, attrs)

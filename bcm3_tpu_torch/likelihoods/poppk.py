@@ -432,15 +432,36 @@ class PopPKLikelihood:
         u_abs = xs[:, npk + 2 * (j + 1)]
         u_elim = xs[:, npk + 2 * (j + 1) + 1]
         ndtri = torch.special.ndtri
-        ka = torch.pow(10.0, xs[:, 0:1] + xs[:, npk : npk + 1] * ndtri(u_abs))
+        guard = self.gradient_mode and self.pk_type in TRANSIT_TYPES
+
+        def rate(mean, sd, u, per=None):
+            """10^(mean + sd ndtri(u)), divided by `per` if given, (B, P). In
+            the transit models' gradient mode with the double-where rule:
+            where the exponent or the rate is not finite (u at 0 or 1, where
+            ndtri is -inf or inf, or an overflow) the rate keeps its value
+            and gets derivative 0, so that such a row's density of -inf keeps
+            its gradient 0 (the recorded departure; else 0 times an infinite
+            derivative, NaN, which VI's mean over its Monte Carlo rows
+            carries into every parameter)."""
+
+            def f(u):
+                r = torch.pow(10.0, mean + sd * ndtri(u))
+                return r if per is None else r / per
+
+            if not guard:
+                return f(u)
+            with torch.no_grad():
+                value = f(u)
+                ok = torch.isfinite(mean + sd * ndtri(u)) & torch.isfinite(value)
+            return torch.where(ok, f(torch.where(ok, u, 0.5)), value)
+
+        ka = rate(xs[:, 0:1], xs[:, npk : npk + 1], u_abs)
         ke = self._transform(1, xs[:, 1])
         if np.isfinite(self.fixed_vod):
             vod = torch.full_like(ke, float(self.fixed_vod))
         else:
             vod = self._transform(3, xs[:, 3])
-        kel = torch.pow(
-            10.0, xs[:, 2:3] + xs[:, npk + 1 : npk + 2] * ndtri(u_elim)
-        ) / vod[:, None]
+        kel = rate(xs[:, 2:3], xs[:, npk + 1 : npk + 2], u_elim, vod[:, None])
         params = {"ka": ka, "ke": ke, "vod": vod, "kel": kel}
         if self.n_states == 3:
             if not np.isfinite(self.fixed_periphery_fwd):

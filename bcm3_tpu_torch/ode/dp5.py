@@ -11,8 +11,10 @@ time, step size, stop pointer and failure flag.
   across stops, min-step fail-fast; the path of the `two_transit` PopPK
   model.
 - `solve_at_times`: segment by segment, each integrated until every lane
-  has reached its end (per-segment and whole-trajectory step budgets); the
-  oracle the budget solver is held to.
+  has reached its end (per-segment and whole-trajectory step budgets, a
+  host read a step); the oracle the budget solver is held to. With
+  `fixed_trips` each segment runs exactly that many trips instead, the
+  lanes that have finished masked, and the solve reads the host never.
 
 Failure is a value, not an exception: a lane that exhausts its budget,
 falls below `min_dt` or goes non-finite has ok = False and NaN states,
@@ -139,6 +141,30 @@ def _integrate_segment(f, t0, t1, y0, dt0, args, rtol, atol, max_steps, min_dt=0
     return y, dt, steps, ok
 
 
+def _integrate_segment_fixed(f, t0, t1, y0, dt0, args, rtol, atol, trips, min_dt=0.0):
+    """`_integrate_segment` as exactly `trips` trips of every lane, a lane
+    that has reached t1 or failed left as it is (bcm3_tpu/ode/dp5.py
+    `_integrate_segment_fori`): no host read. Where `trips` covers a lane's
+    steps it ends as the while form does; a lane that needs more fails."""
+    t, y = t0.clone(), y0.clone()
+    dt = torch.clamp(dt0, min=1e-12)
+    steps = torch.zeros_like(t, dtype=torch.int32)
+    ok = torch.ones_like(t, dtype=torch.bool)
+    for _ in range(trips):
+        active = (t < t1) & ok
+        dt_clip = torch.minimum(dt, t1 - t)
+        y5, err = _step(f, t, y, dt_clip, args)
+        err_norm = _error_norm(y, y5, err, rtol, atol)
+        accept = (err_norm <= 1.0) & active
+        dt = torch.where(active, dt_clip * _factor(err_norm), dt)
+        t = torch.where(accept, t + dt_clip, t)
+        y = torch.where(accept[:, None], y5, y)
+        ok = ok & (~active | (_finite(y) & (dt > min_dt)))
+        steps = steps + active.to(torch.int32)
+    ok = ok & (t >= t1) & _finite(y)
+    return y, dt, steps, ok
+
+
 def solve_at_times(
     f: Callable,
     y0,
@@ -151,17 +177,22 @@ def solve_at_times(
     first_dt: float = 1e-2,
     max_steps_total: Optional[int] = None,
     min_dt: float = 0.0,
+    fixed_trips: Optional[int] = None,
 ) -> DP5Result:
     """Integrate y' = f(t, y, args) of L lanes across sorted stop times,
-    segment by segment (bcm3_tpu/ode/dp5.py `solve_at_times`, without its
-    fixed-trip variant).
+    segment by segment (bcm3_tpu/ode/dp5.py `solve_at_times`).
 
     y0: (L, n); stop_times: (S,) shared or (L, S) per lane, increasing,
     starting at the initial time (ys[:, 0] = y0). Repeated times are
     zero-length segments. `event_fn` is applied at every stop after the
     state is recorded. `max_steps_total` bounds each lane's whole
     trajectory, `min_dt` fails a lane whose step size collapses below it;
-    a failed lane's later states are NaN and its ok is False."""
+    a failed lane's later states are NaN and its ok is False.
+
+    `fixed_trips`: each segment runs exactly this many masked trips and
+    reads the host never (`_integrate_segment_fixed`); the step budgets are
+    then ignored, as in the JAX package. Where the trips cover a lane's
+    steps its results are the while form's; a lane that needs more fails."""
     L = y0.shape[0]
     times = _lane_times(stop_times, L).to(y0)
     S = times.shape[1]
@@ -174,13 +205,18 @@ def solve_at_times(
     for i in range(1, S):
         t_next = times[:, i]
         seg_len = t_next - t
-        if max_steps_total is None:
-            budget = max_steps_per_segment
+        if fixed_trips is not None:
+            y_new, dt, steps, seg_ok = _integrate_segment_fixed(
+                f, t, t_next, y, dt, args, rtol, atol, fixed_trips, min_dt
+            )
         else:
-            budget = torch.clamp(max_steps_total - total_steps, max=max_steps_per_segment)
-        y_new, dt, steps, seg_ok = _integrate_segment(
-            f, t, t_next, y, dt, args, rtol, atol, budget, min_dt
-        )
+            if max_steps_total is None:
+                budget = max_steps_per_segment
+            else:
+                budget = torch.clamp(max_steps_total - total_steps, max=max_steps_per_segment)
+            y_new, dt, steps, seg_ok = _integrate_segment(
+                f, t, t_next, y, dt, args, rtol, atol, budget, min_dt
+            )
         y_new = torch.where((seg_len > 0)[:, None], y_new, y)
         ok = ok & torch.where(seg_len > 0, seg_ok, True)
         ys.append(torch.where(ok[:, None], y_new, torch.nan))
@@ -202,6 +238,7 @@ def solve_at_times_budget(
     total_trips: int = 768,
     first_dt: float = 1e-2,
     min_dt: float = 0.0,
+    record: Optional[Callable] = None,
 ) -> DP5Result:
     """`solve_at_times` with one whole-trajectory step budget
     (bcm3_tpu/ode/dp5.py `solve_at_times_budget`): a static loop of
@@ -212,15 +249,22 @@ def solve_at_times_budget(
     last stop after `total_trips` trips, or whose step size falls to
     `min_dt`, fails (NaN states, ok False).
 
-    y0: (L, n); stop_times: (S,) or (L, S). Returns ys (L, S, n)."""
-    L, n = y0.shape
+    y0: (L, n); stop_times: (S,) or (L, S). Returns ys (L, S, m): with
+    `record`, a projection ``y (L, n) -> (L, m)`` applied to y0 and to each
+    stop's state before it is stored (only what the caller scores), else
+    the whole state (m = n)."""
+    if record is None:
+        record = lambda y: y  # noqa: E731
+    L = y0.shape[0]
     dev = y0.device
     times = _lane_times(stop_times, L).to(y0)
     S = times.shape[1]
+    rec0 = record(y0)
+    m = rec0.shape[1]
     # slot S of the record is where a lane that reached no stop in a trip
     # writes, so every trip scatters one row per lane without a mask
-    ys = torch.full((L, S + 1, n), torch.nan, dtype=y0.dtype, device=dev)
-    ys[:, 0] = y0
+    ys = torch.full((L, S + 1, m), torch.nan, dtype=y0.dtype, device=dev)
+    ys[:, 0] = rec0
     t = times[:, 0].clone()
     y = _event(event_fn, torch.zeros(L, dtype=torch.long, device=dev), t, y0, args)
     dt = torch.full_like(t, first_dt)
@@ -247,7 +291,7 @@ def solve_at_times_budget(
         y = torch.where(accept[:, None], y5, y)
         reached = accept & (t >= t1)
         slot = torch.where(reached, seg_c, S)
-        ys.scatter_(1, slot[:, None, None].expand(L, 1, n), y[:, None, :])
+        ys.scatter_(1, slot[:, None, None].expand(L, 1, m), record(y)[:, None, :])
         y = torch.where(reached[:, None], _event(event_fn, seg_c, t1, y, args), y)
         seg = seg + reached.to(torch.long)
         ok = ok & (~active | (_finite(y) & (new_dt > min_dt)))

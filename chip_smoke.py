@@ -284,29 +284,42 @@ ENSEMBLES = {"one": 8192, "one_transit": 4096}
 NUM_SAMPLES = {"one": 20, "one_transit": 4}
 USE_EVERY_NTH = 5
 ORACLE_DRAWS = 256
+# slice_one, slice_one_transit, pharmaco_pt and pk_single_one: their
+# profiles over this many iterations of a second sampler (cut from their
+# runs' 100 and 20: the trace of 100 took ~30 s to process)
+PT_PROFILE_ITERATIONS = 10
+# pt_emission: `one`'s slice (8 x 8,192 chains, float32) emitting every
+# temperature (11.0 MB an emission), PT_EMISSION_SAMPLES emissions, run with
+# each emit_chunk_size of PT_EMISSION_CHUNKS (None: two emissions a pull)
+PT_EMISSION_SAMPLES = 6
+PT_EMISSION_CHUNKS = (0, 1, None)
 # bench.py bench_adapted: NUM_SAMPLES 100, BENCH_ADAPT_TIMES 2, seed 2024
 ADAPTED_SAMPLES = 100
 ADAPT_TIMES = 2
 # one history keeps the script, with its clustered slices and the gradient
 # samplers, inside its time limit (it fitted 7, then 2)
 EM_HISTORIES, EM_ROWS = 1, 2000
-# the clustered slice at half bench_adapted's depth, 50 samples with
-# boundaries after 16 and 32 (108 ms an adapted iteration, ROADMAP B6)
-CLUSTERED = dict(proposal_type="clustered_covariance", num_samples=50,
-                 adapt_proposal_samples=16)
-# slice_one_autoblock: 8 x 1024 chains, 30 samples, adaptations after 10, 20
+# the clustered slice at 30 samples with boundaries after 10 and 20
+# (bench_adapted: 100, after 33 and 66; 108 ms an adapted iteration, ROADMAP
+# B6), cut from 50 after 16 and 32 for the script's time limit
+CLUSTERED = dict(proposal_type="clustered_covariance", num_samples=30,
+                 adapt_proposal_samples=10)
+# slice_one_autoblock: 8 x 1024 chains, 20 samples, adaptations after 5, 10
+# (cut from 30 after 10 and 20)
 AUTOBLOCK = dict(
-    CLUSTERED, blocking_strategy="clustered_autoblock", num_ensembles=1024, num_samples=30,
-    adapt_proposal_samples=10,
+    CLUSTERED, blocking_strategy="clustered_autoblock", num_ensembles=1024, num_samples=20,
+    adapt_proposal_samples=5,
 )
 # card and CPU labels may differ only on rows whose top two centroid scores
 # are this close (relative to the top), and on at most this share of rows
 ASSIGN_MARGIN, ASSIGN_SHARE = 1e-9, 1e-4
 # the CPU labels every 8th pooled history row (all 2.7 M take it 147 s)
 ASSIGN_HISTORY_STRIDE = 8
-# samples of the profiled run of the clustered slices: their iterations
-# launch ~900 kernels more each, which the profiler's trace pays for
-CLUSTERED_PROFILE_SAMPLES = 4
+# samples of the profiled runs of the adapted and clustered slices and of
+# poppk_models' PT slices (cut from 4, the adapted slice's from 20): their
+# iterations launch up to ~900 kernels more each, which the profiler's
+# trace pays for
+CLUSTERED_PROFILE_SAMPLES = 1
 EM_RTOL = 1e-6
 # singular-test margins (units of its tolerance) below this are at its edge
 EM_EDGE = 1e3
@@ -349,10 +362,11 @@ BANANA_BOX = ((-5.0, 5.0), (-5.0, 15.0))  # tests/fixtures/examples/banana/prior
 # the port's CPU run that the card's rows before the boundary are held to
 BANANA_CPU_ENSEMBLES = 64
 # multimodal_gaussians: tests/test_sampler_banana.py:74-95 at 1024 ensembles,
-# cut from 4000 samples to 1000 (its 12,000 iterations took 95 s on the card,
-# 6,000 took 46 s), the adaptation after a quarter of them, as the test's
-MULTIMODAL = dict(num_chains=4, num_ensembles=1024, num_samples=1000, use_every_nth=3,
-                  proposal_type="global_covariance", adapt_proposal_samples=250,
+# cut from 4000 samples to 500 (its 12,000 iterations took 95 s on the card,
+# 6,000 took 46 s, 3,000 ~20 s), the adaptation after a quarter of them, as
+# the test's
+MULTIMODAL = dict(num_chains=4, num_ensembles=1024, num_samples=500, use_every_nth=3,
+                  proposal_type="global_covariance", adapt_proposal_samples=125,
                   adapt_proposal_times=1, max_history_size=4000,
                   adapt_proposal_max_history_samples=2000, seed=99)
 MULTIMODAL_BOX = (-10.0, 10.0)  # tests/fixtures/examples/multimodal_gaussians/prior.xml
@@ -367,14 +381,19 @@ MOMENT_GROUP = 256
 # its card-vs-CPU rows: the CPU's eager DP5 took about 155 s for 256 (all
 # of 4,096 lanes), so two_transit is compared on this many prior draws
 TWO_TRANSIT_ORACLE_DRAWS = 64
+# two and one_biphasic_uptake through SamplerPT: emitted samples (cut from
+# `one`'s 20)
+POPPK_PT_SAMPLES = 10
 # the gradient and population samplers on `one` (phases 16-19):
 # bench.py bench_nuts's configuration (bench.py:286-358): 2,048 chains, max
 # tree depth 7, target acceptance 0.9, seed 5, its 256 warmup and 256
-# sampling transitions cut to fit the script's time limit
+# sampling transitions cut to fit the script's time limit (to 20 + 10 from
+# 50 + 30: 20 warmup transitions are the fewest at which Stan's schedule
+# works, see NUTS_ONE_TRANSIT)
 NUTS_ONE = dict(num_chains=2048, max_tree_depth=7, target_accept=0.9, seed=5)
-NUTS_WARMUP, NUTS_SAMPLES = 50, 30
+NUTS_WARMUP, NUTS_SAMPLES = 20, 10
 HMC_ONE = dict(num_chains=2048, num_leapfrog_steps=16, seed=5)
-HMC_WARMUP, HMC_SAMPLES = 60, 30
+HMC_WARMUP, HMC_SAMPLES = 30, 15  # cut from 60 + 30
 # SMC at the PT headline's width, 8 x 8,192 chains
 SMC_ONE = dict(num_particles=65536, seed=5)
 # VI: the JAX package's defaults (bcm3_tpu/sampler/vi.py:31-36), its 2,000
@@ -397,6 +416,18 @@ NUTS_ONE_TRANSIT = dict(NUTS_ONE, max_tree_depth=5)
 NUTS_TRANSIT_WARMUP, NUTS_TRANSIT_SAMPLES = 20, 10
 NUTS_STUCK_SHARE = 0.1
 NUTS_START_DRAWS = 4  # prior draws a chain for the start search
+# hmc_one_transit: hmc_one's configuration (HMC_ONE: 2,048 chains, 16
+# leapfrog steps, float32) on `one_transit`, every leapfrog step one
+# gradient evaluation through B2J, its depth cut for time; its starts are
+# prior draws, as the JAX package's HMC draws them (bcm3_tpu/sampler/hmc.py
+# :169). Both HMC phases profile steps cut to HMC_PROFILED_LEAPFROG leapfrog
+# steps (hmc_one's were the run's 16)
+HMC_TRANSIT_WARMUP, HMC_TRANSIT_SAMPLES = 20, 10
+HMC_PROFILED_LEAPFROG = 4
+# vi_two_transit: VI_ONE's configuration (32 samples an ELBO, Adam at
+# 0.05, 1,000 draws, float64) on `two_transit`, B2J's float64 instance with
+# n = 3, K = 7 at 32 x 16 = 512 lanes a launch; its Adam steps cut for time
+VI_TWO_TRANSIT = dict(VI_ONE, num_iterations=150)
 # B2J against its plain version (phase kernels): `one_transit` at the NUTS
 # width (2,048 draws x 16 patients) in float32, both transit models on 64
 # draws x 16 patients in float64. On the lanes that finish in both with the
@@ -431,8 +462,9 @@ GRAD_DRAWS = 256
 GRAD_RTOL, GRAD_SHARE = 1e-3, 0.95
 # banana_gradient: chains or particles, and the runs' depths
 BANANA_GRADIENT = 8192
-BANANA_NUTS = dict(num_warmup=60, num_samples=40, max_tree_depth=5, seed=3)
-BANANA_HMC = dict(num_warmup=60, num_samples=60, num_leapfrog_steps=16, seed=1)
+# (cut from 60 + 40 and 60 + 60)
+BANANA_NUTS = dict(num_warmup=40, num_samples=30, max_tree_depth=5, seed=3)
+BANANA_HMC = dict(num_warmup=40, num_samples=40, num_leapfrog_steps=16, seed=1)
 SMC_REPLICATES = 16
 # the pharmacometric and generic likelihoods (phases 22-26):
 # pharmaco_population at bench.py bench_pharmaco's width (bench.py:430-472:
@@ -467,6 +499,11 @@ B2_STACK_RTOL, B2_STACK_ATOL = 3e-4, 3e-6  # the atol times the smallest dose
 ODE_ROWS = 8192
 ODE_CPU_ROWS = 64
 ODE_RTOL = 1e-8
+# dp5_fixed_trips: the ODE template's solve at ODE_ROWS rows with
+# `fixed_trips`, tried at these counts until one covers every segment of
+# every lane (the count before it, too small for some lanes, is held to the
+# while form under the same per-segment budget)
+FIXED_TRIPS = (1, 2, 4, 8, 16, 32)
 PLUGIN_ROWS = 65536
 PLUGIN_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                              "plugins", "gaussian_plugin.c")
@@ -506,9 +543,9 @@ INCUCYTE_SYNC_ROWS = 65536
 # incucyte run profiled over INCUCYTE_PT_PROFILE_SAMPLES iterations of a
 # second sampler (an iteration launches ~8,000 operations, each one event
 # of the host's and one of the device's for the profiler to process)
-INCUCYTE_PT_SAMPLES = 20
+INCUCYTE_PT_SAMPLES = 5  # cut from 20
 INCUCYTE_PT_PROFILE_SAMPLES = 2
-MITOSIS_PT_SAMPLES = 4
+MITOSIS_PT_SAMPLES = 1  # cut from 4
 # mitosis: 32 cells x 30 timepoints of boxcars from the model's own Sobol
 # construction at MITOSIS_TRUTH (tests/test_cellmisc.py:82-103), rows the
 # truth with normal jitter MITOSIS_JITTER; the native matching against
@@ -951,7 +988,7 @@ def b2j_against_plain(pk_type, prior, lik, rows, dtype, gen):
 
 def phase_slice(pk_type, models):
     return pt_slice(f"slice {pk_type}", *models[pk_type], ENSEMBLES[pk_type],
-                    NUM_SAMPLES[pk_type])
+                    NUM_SAMPLES[pk_type], profile_samples=PT_PROFILE_ITERATIONS)
 
 
 def pt_config(E, num_samples):
@@ -1193,7 +1230,8 @@ def phase_adapted(models, unadapted, smi):
     50 of the 100 samples, where bench_adapted's crosses two (each takes
     about a minute, torch.linalg.eigh most of it, and the second runs the
     same path as the first)."""
-    _, res, _, m = adapted_protocol("adapted", models, smi, cold=False, adapt_times=1)
+    _, res, _, m = adapted_protocol("adapted", models, smi, cold=False, adapt_times=1,
+                                    profile_samples=CLUSTERED_PROFILE_SAMPLES)
     log(f"adapted against unadapted `one`: wall {m['wall_ms']:.4f} against "
         f"{unadapted['wall_ms']:.4f} ms, busy {m['busy_ms']} against "
         f"{unadapted['busy_ms']} ms per iteration")
@@ -1520,7 +1558,7 @@ def phase_multimodal(smi):
 
 def phase_poppk_models(workdir, smi):
     """The other PopPK models on the card: `two` and `one_biphasic_uptake`
-    through SamplerPT at `one`'s width and depth (cold run, warm wall per
+    through SamplerPT at `one`'s width, POPPK_PT_SAMPLES deep (cold run, warm wall per
     iteration, busy share under the profiler); `two_transit` at
     one_transit's width in one evaluation of prior draws (CUDA events; its
     sampler's cold run, 76 s of start-position search, and its profile are
@@ -1556,7 +1594,7 @@ def phase_poppk_models(workdir, smi):
             del x, lp
         else:
             cfg = PTConfig(
-                num_samples=NUM_SAMPLES["one"], use_every_nth=USE_EVERY_NTH,
+                num_samples=POPPK_PT_SAMPLES, use_every_nth=USE_EVERY_NTH,
                 num_chains=NUM_CHAINS, num_ensembles=E, adapt_proposal_samples=0,
                 adapt_proposal_times=0, swapping_scheme="deterministic_even_odd", seed=7,
                 emit_dtype=torch.float32, emit_fixed_only=True, device=CARD,
@@ -2174,6 +2212,23 @@ def phase_nuts_one(models, smi):
                 leaf_wall_ms=full["wall_ms"] / leaves)
 
 
+def finite_gradients_at(target, lik, z):
+    """The gradient of a transit model's posterior at rows z (C, D): (the
+    rows of finite density whose rates lie inside float32, those of them
+    with a non-finite gradient). A rate beyond float32 has a finite density
+    in which it no longer enters, and a NaN gradient, as in the JAX
+    package; phase_gradient_card_vs_cpu counts such rows."""
+    import torch
+
+    v, g = target.value_and_grad(z)
+    params, _, _ = lik.model._patient_params(target.reparam.to_x(z))
+    fits = torch.ones(z.shape[0], dtype=torch.bool, device=z.device)
+    for p in params.values():
+        fits &= torch.isfinite(p.reshape(z.shape[0], -1)).all(dim=1)
+    fin = torch.isfinite(v) & fits
+    return int(fin.sum()), int((~torch.isfinite(g[fin]).all(dim=1)).sum())
+
+
 def phase_nuts_one_transit(models, smi):
     """NUTS on `one_transit` at bench_nuts's width: 2,048 chains, target
     acceptance 0.9, seed 5, float32, max tree depth 5 (NUTS_ONE_TRANSIT),
@@ -2220,18 +2275,8 @@ def phase_nuts_one_transit(models, smi):
     evals = res["gradient_evaluations_per_transition"]
     grad_per_s = evals * S / res["sampling_seconds"]
     launches = transit_tangent_kernels.transit_jacobian.launches
-    # the gradient where the chains ended: finite wherever the density is,
-    # on the rows whose rates lie inside float32 (a rate beyond it has a
-    # finite density in which it no longer enters, and a NaN gradient, as in
-    # the JAX package; phase_gradient_card_vs_cpu counts such rows)
     z, _, _ = s.state
-    v, g = s.target.value_and_grad(z)
-    params, _, _ = lik.model._patient_params(s.target.reparam.to_x(z))
-    fits = torch.ones(C, dtype=torch.bool, device=z.device)
-    for p in params.values():
-        fits &= torch.isfinite(p.reshape(C, -1)).all(dim=1)
-    fin = torch.isfinite(v) & fits
-    bad = int((~torch.isfinite(g[fin]).all(dim=1)).sum())
+    fin, bad = finite_gradients_at(s.target, lik, z)
     log(f"nuts_one_transit: {C} chains, {cfg.num_warmup} warmup + {S} sampling transitions at "
         f"max depth {cfg.max_tree_depth}, run {res['elapsed_seconds']:.3f} s, sampling "
         f"{res['sampling_seconds']:.3f} s; ESS per chain {ess['ess_per_chain_mean']:.4f} of "
@@ -2241,9 +2286,9 @@ def phase_nuts_one_transit(models, smi):
         f"step size {res['step_size']:.5g}; {evals:.2f} gradient evaluations a transition, "
         f"{grad_per_s:.1f} gradient evaluations/s; B2J launches {launches} in the run "
         f"({s.target.gradient_evaluations} gradient evaluations); at the run's end "
-        f"{int(fin.sum())} rows of finite density with rates inside float32, {bad} of them with "
+        f"{fin} rows of finite density with rates inside float32, {bad} of them with "
         f"a non-finite gradient (limit 0); on {smi}")
-    assert bad == 0 and int(fin.sum()) >= C // 2
+    assert bad == 0 and fin >= C // 2
     # the wall of a leaf in the run's sampling loop; the profile from where
     # the run ended, on trees cut at PROFILED_DEPTH (a leaf runs the same
     # operations at any depth, and the trace of full trees takes long to
@@ -2305,11 +2350,128 @@ def phase_hmc_one(models, smi):
         f"{steps_per_s:.1f} leapfrog steps/s = "
         f"{steps_per_s * C:.1f} chain gradients/s; on {smi}")
     z, lp, g = s.state
-    draws = s.draws(C, z.shape[1], torch.float32)
-    prof = sampler_profile(lambda: s.step(z, lp, g, s.step_size, s.inv_mass, *draws),
+    short = SamplerHMC(prior, lik, dataclasses.replace(cfg,
+                                                       num_leapfrog_steps=HMC_PROFILED_LEAPFROG))
+    draws = short.draws(C, z.shape[1], torch.float32)
+    prof = sampler_profile(lambda: short.step(z, lp, g, s.step_size, s.inv_mass, *draws),
                            PROFILED_TRANSITIONS)
-    log_profile("hmc_one profile", prof, "leapfrog step", cfg.num_leapfrog_steps, smi)
+    log_profile(f"hmc_one profile (steps of {HMC_PROFILED_LEAPFROG} leapfrog steps)", prof,
+                "leapfrog step", HMC_PROFILED_LEAPFROG, smi)
     return dict(res=res, ess=ess, profile=prof, steps_per_s=steps_per_s)
+
+
+def phase_hmc_one_transit(models, smi):
+    """HMC on `one_transit` at hmc_one's configuration (HMC_ONE: 2,048
+    chains, 16 leapfrog steps, seed 5, float32), HMC_TRANSIT_WARMUP +
+    HMC_TRANSIT_SAMPLES iterations, every leapfrog step one gradient
+    evaluation of 32,768 lanes through kernel B2J (float32, n = 2, K = 5).
+    The chains start at prior draws, as the JAX package's do; about half of
+    this trial's have density -inf (ROADMAP C). From there h1 - h0 is +inf
+    where the trajectory ends at a finite density (accepted) and NaN where
+    it ends at -inf (a rejection), as in the JAX package's hmc.py
+    (tests/test_torch_hmc.py); the port's gradient 0 at such a row (its
+    recorded departure) lets the trajectory move, where the JAX package's
+    NaN would not. Asserts the samples' shape, finite samples and a finite
+    gradient wherever the density is finite and the rates lie inside
+    float32. Reports throughput, not ESS (HMC adapts one step size for all
+    chains, ROADMAP C): leapfrog steps/s, chain gradients/s, the
+    acceptance, the step size, the chains that never moved and what became
+    of those that started at -inf, and B2J's launches and device ms a
+    leapfrog step from the profile of steps cut to HMC_PROFILED_LEAPFROG."""
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch.ops import transit_tangent_kernels
+    from bcm3_tpu_torch.sampler import HMCConfig, SamplerHMC
+
+    prior, lik = models["one_transit"]
+    cfg = HMCConfig(num_warmup=HMC_TRANSIT_WARMUP, num_samples=HMC_TRANSIT_SAMPLES,
+                    device=CARD, dtype=torch.float32, **HMC_ONE)
+    C, S, D = cfg.num_chains, cfg.num_samples, prior.num_variables
+    # the starts run() draws: a sampler's first draw from its seeded generator
+    probe = SamplerHMC(prior, lik, cfg)
+    with torch.no_grad():
+        z0 = probe.target.reparam.from_x(prior.sample(probe.generator, (C,), torch.float32))
+        start_finite = torch.isfinite(probe.target(z0)).cpu().numpy()
+    s = SamplerHMC(prior, lik, cfg)
+    res = s.run()
+    assert res["samples"].shape == (S * C, 1, D) and np.isfinite(res["samples"]).all()
+    x = res["samples_per_chain"]
+    stuck = (x == x[:1]).all(axis=(0, 2))
+    z, lp, g = s.state
+    end_finite = torch.isfinite(lp).cpu().numpy()
+    steps_per_s = res["gradient_evaluations"] / res["sampling_seconds"]
+    launches = transit_tangent_kernels.transit_jacobian.launches
+    fin, bad = finite_gradients_at(s.target, lik, z)
+    log(f"hmc_one_transit: {C} chains, {cfg.num_leapfrog_steps} leapfrog steps, "
+        f"{cfg.num_warmup} warmup + {S} sampling iterations, run {res['elapsed_seconds']:.3f} s, "
+        f"sampling {res['sampling_seconds']:.3f} s; acceptance {res['accept_rate']:.4f}, step "
+        f"size {res['step_size']:.5g}; {int(stuck.sum())} of {C} chains never moved in the "
+        f"stored samples; {int((~start_finite).sum())} chains started at density -inf, "
+        f"{int((~start_finite & end_finite).sum())} of them ended at a finite density; "
+        f"{int(end_finite.sum())} chains end finite; {steps_per_s:.1f} leapfrog steps/s = "
+        f"{steps_per_s * C:.1f} chain gradients/s (throughput; ESS not claimed: one step size "
+        f"for all chains, ROADMAP C); B2J launches {launches} so far in the phase; at the run's "
+        f"end {fin} rows of finite density with rates inside float32, {bad} of them with a "
+        f"non-finite gradient (limit 0); on {smi}")
+    assert bad == 0 and 0.0 <= res["accept_rate"] <= 1.0
+    short = SamplerHMC(prior, lik, dataclasses.replace(cfg,
+                                                       num_leapfrog_steps=HMC_PROFILED_LEAPFROG))
+    draws = short.draws(C, D, torch.float32)
+    prof = sampler_profile(lambda: short.step(z, lp, g, s.step_size, s.inv_mass, *draws),
+                           PROFILED_TRANSITIONS)
+    n = HMC_PROFILED_LEAPFROG
+    if prof["busy_ms"] is None:
+        log(f"hmc_one_transit profile: wall {prof['wall_ms'] / n:.3f} ms a leapfrog step; the "
+            f"profiler saw no device time; on {smi}")
+    else:
+        log(f"hmc_one_transit profile (steps of {n} leapfrog steps): wall "
+            f"{prof['wall_ms'] / n:.3f} ms a leapfrog step, device busy "
+            f"{prof['busy_ms'] / n:.3f} ms (idle share "
+            f"{1.0 - prof['busy_ms'] / prof['wall_ms']:.4f}), {prof['launches'] / n:.1f} device "
+            f"launches a leapfrog step, of which B2J one, {prof['b2j_ms'] / n:.4f} ms; on {smi}")
+    return dict(res=res, profile=prof, steps_per_s=steps_per_s, stuck_chains=int(stuck.sum()))
+
+
+def phase_vi_two_transit(models, smi):
+    """VI on `two_transit` at VI_ONE's configuration in float64 (32 samples
+    an ELBO over 16 patients: B2J's float64 instance with n = 3, K = 7 at
+    512 lanes a launch), its Adam steps cut (VI_TWO_TRANSIT). Asserts a
+    finite fitted mean and log-sigma and finite samples; reports the ELBO,
+    Adam steps/s, the share of the fitted Gaussian's draws (the 1,000
+    emitted) whose density is -inf, and B2J's device ms a step."""
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch.ops import transit_tangent_kernels
+    from bcm3_tpu_torch.sampler import SamplerVI, VIConfig
+
+    prior, lik = models["two_transit"]
+    cfg = VIConfig(device=CARD, dtype=torch.float64, **VI_TWO_TRANSIT)
+    s = SamplerVI(prior, lik, cfg)
+    res = s.run()
+    D = prior.num_variables
+    assert res["samples"].shape == (cfg.num_samples, 1, D)
+    assert np.isfinite(res["mean"]).all() and np.isfinite(res["log_sigma"]).all()
+    assert np.isfinite(res["samples"]).all()
+    minus_inf = float(np.mean(~np.isfinite(res["log_prior"] + res["log_likelihood"])))
+    launches = transit_tangent_kernels.transit_jacobian.launches
+    mu = torch.as_tensor(res["mean"], device=CARD)
+    log_sigma = torch.as_tensor(res["log_sigma"], device=CARD)
+    eps = torch.randn((cfg.num_mc_samples, D), generator=s.generator, dtype=torch.float64,
+                      device=CARD)
+    prof = sampler_profile(lambda: s.fit(mu, log_sigma, [eps]), PROFILED_TRANSITIONS)
+    b2j = "not measured" if prof["busy_ms"] is None else f"{prof['b2j_ms']:.4f} ms"
+    busy = "not measured" if prof["busy_ms"] is None else f"{prof['busy_ms']:.3f} ms"
+    log(f"vi_two_transit: {cfg.num_iterations} Adam steps of {cfg.num_mc_samples} samples x "
+        f"{NUM_PATIENTS} patients = {cfg.num_mc_samples * NUM_PATIENTS} lanes a B2J launch "
+        f"(float64, n = 3, K = 7), ELBO {res['elbo']:.3f}, fit {res['fit_seconds']:.3f} s = "
+        f"{cfg.num_iterations / res['fit_seconds']:.1f} Adam steps/s; share of the fitted "
+        f"Gaussian's {cfg.num_samples} draws with density -inf {minus_inf:.4f}; mean sigma "
+        f"{float(np.exp(res['log_sigma']).mean()):.4f}; B2J launches {launches} so far in the "
+        f"phase; an Adam step (profile): wall {prof['wall_ms']:.3f} ms, device busy {busy}, "
+        f"B2J {b2j}; on {smi}")
+    return dict(res=res, profile=prof, minus_inf_share=minus_inf)
 
 
 def phase_smc_one(models, smi):
@@ -2997,7 +3159,8 @@ def phase_pharmaco_pt(workdir, smi):
     """SamplerPT over bench_pharmaco's likelihood at `one`'s width and
     depth."""
     prior, lik, _ = pharmaco_model(workdir)
-    res = pt_slice("pharmaco_pt", prior, lik, ENSEMBLES["one"], NUM_SAMPLES["one"])
+    res = pt_slice("pharmaco_pt", prior, lik, ENSEMBLES["one"], NUM_SAMPLES["one"],
+                   profile_samples=PT_PROFILE_ITERATIONS)
     log(f"pharmaco_pt on {smi}")
     return res["evals_per_second"]
 
@@ -3089,7 +3252,8 @@ def phase_pk_single_one(single, smi):
     for `one` and `two` on PK_SINGLE_CPU_ROWS prior draws."""
     import torch
 
-    res = pt_slice("pk_single_one", *single["one"], ENSEMBLES["one"], NUM_SAMPLES["one"])
+    res = pt_slice("pk_single_one", *single["one"], ENSEMBLES["one"], NUM_SAMPLES["one"],
+                   profile_samples=PT_PROFILE_ITERATIONS)
     log(f"pk_single_one on {smi}")
     for pk_type in ("one", "two"):
         prior, lik = single[pk_type]
@@ -3227,6 +3391,150 @@ def phase_ode_dll(workdir, smi):
     assert lp.device.type == x.device.type and np.array_equal(np.isneginf(got), np.isneginf(ref))
     np.testing.assert_allclose(got[np.isfinite(ref)], ref[np.isfinite(ref)], rtol=1e-6)
     return ODE_ROWS / ode_seconds
+
+
+def phase_pt_emission(models, workdir, smi):
+    """SamplerPT's chunked, overlapped emission at `one`'s slice width (8 x
+    8,192 chains, float32) with every temperature emitted (11.0 MB an
+    emission): PT_EMISSION_SAMPLES emissions for each emit_chunk_size of
+    PT_EMISSION_CHUNKS, each from a new sampler of the same seed. Asserts
+    samples, log-prior and log-likelihood bit for bit equal; reports each
+    run's wall, a run's wall an iteration, and the host reads of a run and
+    of a segment (sync debug mode "warn"). Then a short run with
+    `profile_dir`: its trace file must name the `poppk_propagate` kernel and
+    the SamplerPT.sampling span."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch.sampler import SamplerPT
+
+    prior, lik = models["one"]
+    base = dataclasses.replace(pt_config(ENSEMBLES["one"], PT_EMISSION_SAMPLES),
+                               emit_fixed_only=False)
+    iterations = PT_EMISSION_SAMPLES * USE_EVERY_NTH
+    SamplerPT(prior, lik, dataclasses.replace(base, num_samples=1)).run()  # warm
+    runs = {}
+    for chunk in PT_EMISSION_CHUNKS:
+        sampler = SamplerPT(prior, lik, dataclasses.replace(base, emit_chunk_size=chunk))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res, reads = host_reads(sampler.run)
+        wall = time.perf_counter() - t
+        runs[chunk] = res
+        log(f"pt_emission emit_chunk_size {chunk}: {NUM_CHAINS} x {ENSEMBLES['one']} chains, "
+            f"every temperature, {PT_EMISSION_SAMPLES} emissions of {USE_EVERY_NTH} "
+            f"iterations: run {wall:.3f} s (host reads {reads}), sampling "
+            f"{res['sampling_seconds']:.3f} s = {res['sampling_seconds'] * 1e3 / iterations:.3f} "
+            f"ms an iteration; on {smi}")
+    first = runs[PT_EMISSION_CHUNKS[0]]
+    assert first["samples"].shape == (PT_EMISSION_SAMPLES * ENSEMBLES["one"], NUM_CHAINS,
+                                      prior.num_variables)
+    same = {chunk: all(np.array_equal(res[k], first[k])
+                       for k in ("samples", "log_prior", "log_likelihood"))
+            for chunk, res in runs.items()}
+    # a segment alone: its iterations and the chunks' copies, no drain
+    sampler = SamplerPT(prior, lik, base)
+    state = sampler._init_state()
+    torch.cuda.synchronize()
+    (_, _, rows), reads = host_reads(
+        lambda: sampler._run_segment(state, list(sampler.proposals), PT_EMISSION_SAMPLES))
+    torch.cuda.synchronize()
+    log(f"pt_emission: bit for bit across chunk sizes {same}; host reads of a segment of "
+        f"{PT_EMISSION_SAMPLES} emissions {reads}; on {smi}")
+    assert all(same.values()), f"pt_emission: chunk sizes disagree {same}"
+    del runs, first, rows
+
+    trace_dir = os.path.join(workdir, "pt_profile")
+    cfg = dataclasses.replace(base, num_samples=1, profile_dir=trace_dir)
+    t = time.perf_counter()
+    SamplerPT(prior, lik, cfg).run()
+    seconds = time.perf_counter() - t
+    traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json*"))
+    assert len(traces) == 1, f"pt_emission: profile_dir holds {traces}"
+    with open(traces[0]) as f:
+        text = f.read()
+    names = {k: k in text for k in ("poppk_propagate", "SamplerPT.sampling")}
+    log(f"pt_emission profile_dir: a run of {USE_EVERY_NTH} iterations under the profiler in "
+        f"{seconds:.3f} s, trace {os.path.basename(traces[0])} of {len(text)} bytes, names "
+        f"{names}; on {smi}")
+    assert all(names.values()), f"pt_emission: the trace lacks {names}"
+    return dict(same=same, segment_reads=reads)
+
+
+def phase_dp5_fixed_trips(smi):
+    """dp5's `fixed_trips` on the card: the ODE template's harmonic solve
+    (ODE_ROWS rows, float64, its 100 stops) by the while form and by the
+    fixed form at each count of FIXED_TRIPS until one covers every lane's
+    segments. The covering count's result must equal the while form's bit
+    for bit (a masked trip leaves a lane as it is), the count before it
+    must fail some lanes exactly as the while form does under that
+    per-segment budget, and the fixed form must read the host never (sync
+    debug mode "error"). Reports the wall of both forms (ROADMAP B12)."""
+    import numpy as np
+    import torch
+
+    from bcm3_tpu_torch import VariableSet
+    from bcm3_tpu_torch.likelihoods.ode_template import ODETemplateLikelihood
+    from bcm3_tpu_torch.ode import dp5
+
+    vs = VariableSet()
+    for i in range(13):
+        vs.add_variable(f"p{i}")
+    model = ODETemplateLikelihood(vs, derivative=harmonic_derivative)
+    rng = np.random.default_rng(4)
+    rows = rng.uniform(0.1, 1.3, (ODE_ROWS, 13))
+    rows[:, 9] = 100.0 + 20.0 * rng.normal(size=ODE_ROWS)  # phase_ode_dll's rows
+    p = model._transform(torch.as_tensor(rows, device=CARD))
+    y0 = p[:, 9:13].contiguous()
+    ts = torch.as_tensor(model.timepoints, dtype=torch.float64, device=CARD)
+    kw = dict(args=p, rtol=model.rtol, atol=model.atol)
+
+    def same(a, b):
+        return (torch.equal(a.ok, b.ok) and torch.equal(a.n_steps, b.n_steps)
+                and torch.equal(a.ys.isnan(), b.ys.isnan())
+                and torch.equal(a.ys.nan_to_num(), b.ys.nan_to_num()))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    ref, while_s = timed(lambda: dp5.solve_at_times(harmonic_derivative, y0, ts, **kw))
+    assert bool(ref.ok.all())
+    before = None
+    for trips in FIXED_TRIPS:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fixed, fixed_s = timed(
+                lambda: dp5.solve_at_times(harmonic_derivative, y0, ts, fixed_trips=trips, **kw))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if bool(fixed.ok.all()):
+            break
+        before = (trips, fixed)
+    else:
+        raise AssertionError(f"dp5_fixed_trips: no count of {FIXED_TRIPS} covers every lane")
+    covered = same(fixed, ref)
+    log(f"dp5_fixed_trips: {ODE_ROWS} rows x {len(ts)} stops, float64: the while form "
+        f"{while_s:.3f} s ({int(ref.n_steps.max())} steps at most a lane), fixed_trips {trips} "
+        f"{fixed_s:.3f} s with 0 host reads (sync debug mode error), bit for bit {covered}; "
+        f"on {smi}")
+    assert covered, "dp5_fixed_trips: the covering count differs from the while form"
+    if before is not None:
+        small, fixed_small = before
+        budget = dp5.solve_at_times(harmonic_derivative, y0, ts,
+                                    max_steps_per_segment=small, **kw)
+        agree = same(fixed_small, budget)
+        log(f"dp5_fixed_trips: fixed_trips {small} fails {int((~fixed_small.ok).sum())} of "
+            f"{ODE_ROWS} lanes, the while form with max_steps_per_segment {small} "
+            f"{int((~budget.ok).sum())}; bit for bit, NaN rows included, {agree}")
+        assert agree and not bool(fixed_small.ok.all())
+    return dict(while_seconds=while_s, fixed_seconds=fixed_s, trips=trips)
 
 
 # ---------------------------------------------------------------------------
@@ -3855,17 +4163,23 @@ def device_busy(fn):
     fn() under the profiler, the device alone, summed from the profiler's
     raw events (`device_profile` builds every event's Python object, ~0.2
     ms each: minutes for the ~200,000 operations of a cellpop
-    evaluation). Raises if the trace holds no device event."""
+    evaluation). CUPTI has returned a trace without device events for a
+    call that launches thousands of kernels: such a call is profiled once
+    more, and raises if that trace holds no device event either."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    t = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    device = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-              if e.device_type() == DeviceType.CUDA]
+    for _ in range(2):
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
+        if device:
+            break
+        log("device_busy: the profiler traced no device event; profiling the call once more")
     assert device, "the profiler traced no device event"
     return sum(device) / 1e6, len(device), time.perf_counter() - t
 
@@ -4942,6 +5256,8 @@ def main(workdir):
     paths["sharded_two_process"]["poppk_propagate"] += two
     assert two > 0, "sharded_two_process never launched poppk_propagate"
     del one_process
+    # the sampler's chunked emission and profile_dir, over B1
+    main_path("pt_emission", ("poppk_propagate",), phase_pt_emission, models, workdir, smi)
     # the slices of this port's later paths, which no kernel serves
     # (counted all the same, to show it)
     analytic = {"banana": main_path("banana", (), phase_banana, smi),
@@ -4957,9 +5273,14 @@ def main(workdir):
         "hmc_one": main_path("hmc_one", both, phase_hmc_one, models, smi),
         "smc_one": main_path("smc_one", ("poppk_propagate",), phase_smc_one, models, smi),
         "vi_one": main_path("vi_one", both, phase_vi_one, models, smi),
-        # NUTS on one_transit differentiates through B2J (the gradient mode)
+        # NUTS, HMC and VI on the transit models differentiate through B2J
+        # (the gradient mode)
         "nuts_one_transit": main_path("nuts_one_transit", ("transit_dp5_tangent",),
                                       phase_nuts_one_transit, models, smi),
+        "hmc_one_transit": main_path("hmc_one_transit", ("transit_dp5_tangent",),
+                                     phase_hmc_one_transit, models, smi),
+        "vi_two_transit": main_path("vi_two_transit", ("transit_dp5_tangent",),
+                                    phase_vi_two_transit, models, smi),
     }
     torch.cuda.empty_cache()
     main_path("banana_gradient", (), phase_banana_gradient, smi)
@@ -4975,6 +5296,7 @@ def main(workdir):
     main_path("pk_single_one_transit", ("transit_dp5",), phase_pk_single_one_transit, single,
               smi)
     evals["ode_template"] = main_path("ode_dll", (), phase_ode_dll, workdir, smi)
+    main_path("dp5_fixed_trips", (), phase_dp5_fixed_trips, smi)
     # the cell likelihoods: no kernel serves them (none in the JAX package
     # either: XLA, and the matching on the host)
     incucyte = main_path("incucyte", (), phase_incucyte, workdir, smi)
@@ -5031,6 +5353,15 @@ def main(workdir):
             stuck_chains=samplers["nuts_one_transit"]["ess"]["stuck_chains"],
             gradient_evaluations_per_sec=samplers["nuts_one_transit"]["grad_per_s"],
             leaf_wall_ms=samplers["nuts_one_transit"]["leaf_wall_ms"]),
+        "hmc_one_transit": dict(
+            ess_usable=False, accept_rate=samplers["hmc_one_transit"]["res"]["accept_rate"],
+            stuck_chains=samplers["hmc_one_transit"]["stuck_chains"],
+            leapfrog_steps_per_sec=samplers["hmc_one_transit"]["steps_per_s"]),
+        "vi_two_transit": dict(
+            elbo=samplers["vi_two_transit"]["res"]["elbo"],
+            adam_steps_per_sec=VI_TWO_TRANSIT["num_iterations"]
+            / samplers["vi_two_transit"]["res"]["fit_seconds"],
+            minus_inf_share=samplers["vi_two_transit"]["minus_inf_share"]),
         "b1t_device_ms": {k: v["ms"] for k, v in b1t.items()},
         "b1t_wrapper_host_us": {k: v["host_us"] for k, v in b1t.items()},
     }) + f" on {smi}")

@@ -78,8 +78,9 @@ def test_pt_config_fields_equal(tmp_path):
     common = {f.name for f in dataclasses.fields(jcfg)} & {f.name for f in dataclasses.fields(pcfg)}
     common -= {"dtype", "emit_dtype"}
     # the 27 fields the table sets besides emit_dtype, and gmm_fit_backend,
-    # shard_over_devices and mesh_devices, which it leaves at their defaults
-    assert len(common) == 30
+    # shard_over_devices, mesh_devices, emit_chunk_size and profile_dir,
+    # which it leaves at their defaults
+    assert len(common) == 32
     for name in sorted(common):
         assert getattr(pcfg, name) == getattr(jcfg, name), name
     assert str(jcfg.emit_dtype) == "float32" and pcfg.emit_dtype == torch.float32

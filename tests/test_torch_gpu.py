@@ -49,7 +49,10 @@ Each kernel is held to its plain PyTorch version on the same inputs:
   NUTS run launches B2J.
 
 The sharded sampler in a one-rank NCCL group equals the unsharded run on
-the card bit for bit.
+the card bit for bit. The sampler's overlapped emission gives the same
+samples for every emit_chunk_size, dp5's fixed-trip form reads the host
+never and equals the while form, and one HMC step and one VI step on the
+transit models run through B2J to finite values.
 """
 
 import numpy as np
@@ -1266,3 +1269,97 @@ def test_sharded_one_rank_nccl_matches_unsharded(cuda):
         np.testing.assert_array_equal(sharded[k], plain[k], err_msg=k)
     for k, v in plain["acceptance"].items():
         np.testing.assert_array_equal(sharded["acceptance"][k], v, err_msg=k)
+
+
+def test_chunked_emission_is_bit_identical_on_the_card(cuda):
+    """SamplerPT's overlapped emission on the card (pinned buffers, a copy
+    stream): emit_chunk_size 0, 1 and None give the same samples,
+    log-densities and acceptance counts bit for bit, every temperature
+    emitted."""
+    from bcm3_tpu_torch import entry
+
+    cfg = dict(num_samples=12, use_every_nth=2, num_chains=4, num_ensembles=256,
+               adapt_proposal_samples=6, adapt_proposal_times=1, seed=5, dtype=torch.float32)
+    runs = {c: entry._sampler("cuda", emit_chunk_size=c, **cfg).run() for c in (0, 1, None)}
+    for c in (1, None):
+        for k in ("samples", "log_prior", "log_likelihood"):
+            np.testing.assert_array_equal(runs[c][k], runs[0][k], err_msg=f"{c} {k}")
+        for k, v in runs[0]["acceptance"].items():
+            np.testing.assert_array_equal(runs[c]["acceptance"][k], v, err_msg=f"{c} {k}")
+
+
+def test_fixed_trips_reads_the_host_never(cuda):
+    """dp5's fixed-trip form makes no synchronizing call (sync debug mode
+    "error" raises on one) and, with trips that cover every segment, equals
+    the while form on the card bit for bit."""
+    from bcm3_tpu_torch.ode import dp5
+
+    rng = np.random.default_rng(3)
+    L = 512
+    w = torch.as_tensor(10 ** rng.uniform(-0.5, 0.8, L), device=cuda)
+    y0 = torch.as_tensor(rng.uniform(-1.0, 1.0, (L, 2)), device=cuda)
+    ts = torch.as_tensor([0.0, 0.7, 1.5, 3.0, 6.0], dtype=torch.float64, device=cuda)
+
+    def f(t, y, w):
+        return torch.stack([y[:, 1], -w * w * y[:, 0] - 0.3 * y[:, 1]], dim=-1)
+
+    ref = dp5.solve_at_times(f, y0, ts, args=w)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fixed = dp5.solve_at_times(f, y0, ts, args=w, fixed_trips=400)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(ref.ok.all())
+    assert torch.equal(fixed.ok, ref.ok) and torch.equal(fixed.n_steps, ref.n_steps)
+    assert torch.equal(fixed.ys, ref.ys)
+
+
+def test_hmc_and_vi_steps_on_a_transit_model(cuda, tmp_path):
+    """One HMC step (float32) and one VI Adam step (float64) on the transit
+    models on the card, through B2J: finite outputs, B2J launched."""
+    from bcm3_tpu_torch import Prior, VariableSet
+    from bcm3_tpu_torch.likelihoods import Likelihood
+    from bcm3_tpu_torch.likelihoods.poppk import PopPKLikelihood
+    from bcm3_tpu_torch.likelihoods.poppk_synth import synthesize_trial, write_poppk_prior_xml
+    from bcm3_tpu_torch.sampler import HMCConfig, SamplerHMC, SamplerVI, VIConfig
+
+    P = 4
+    models = {}
+    for pk_type in ("one_transit", "two_transit"):
+        path = str(tmp_path / f"prior_{pk_type}.xml")
+        write_poppk_prior_xml(path, P, pk_type)
+        vs = VariableSet.from_xml(path)
+        trial, _ = synthesize_trial(num_patients=P, num_timepoints=8, seed=3)
+        pk = PopPKLikelihood(vs, trial, pk_type, "lapatinib")
+        models[pk_type] = (Prior.from_xml(path, vs),
+                           Likelihood("pop_pk_trajectory", pk.log_prob_batched, model=pk))
+
+    prior, lik = models["one_transit"]
+    s = SamplerHMC(prior, lik, HMCConfig(num_chains=64, num_leapfrog_steps=4, seed=2,
+                                         device="cuda", dtype=torch.float32))
+    z = s.target.reparam.from_x(prior.sample(s.generator, (64,), torch.float32))
+    lp, g = s.target.value_and_grad(z)
+    keep = torch.isfinite(lp) & torch.isfinite(g).all(dim=1)
+    assert int(keep.sum()) >= 8
+    z, lp, g = z[keep], lp[keep], g[keep]
+    before = transit_jacobian.launches
+    eps = torch.tensor(0.01, device=cuda)
+    out = s.step(z, lp, g, eps, torch.ones(z.shape[1], device=cuda),
+                 *s.draws(z.shape[0], z.shape[1], torch.float32))
+    assert transit_jacobian.launches == before + 4
+    z1, lp1, g1, alpha, accept = out
+    assert torch.isfinite(z1).all() and torch.isfinite(lp1).all() and torch.isfinite(g1).all()
+    assert ((alpha >= 0) & (alpha <= 1)).all()
+
+    prior, lik = models["two_transit"]
+    vi = SamplerVI(prior, lik, VIConfig(num_mc_samples=8, seed=2, device="cuda",
+                                        dtype=torch.float64))
+    mu, log_sigma = vi.initial_parameters()
+    before = transit_jacobian.launches
+    eps = torch.randn((8, mu.shape[0]), generator=vi.generator, dtype=torch.float64,
+                      device=cuda)
+    mu1, log_sigma1, elbo = vi.fit(mu, log_sigma, [eps])
+    assert transit_jacobian.launches == before + 1
+    assert torch.isfinite(mu1).all() and torch.isfinite(log_sigma1).all()
+    assert np.isfinite(elbo)

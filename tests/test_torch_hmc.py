@@ -7,7 +7,8 @@
   given the JAX package's own draws (bcm3_tpu/sampler/hmc.py:145-159: the
   momentum from the first split of each chain's key, the uniform from the
   second): new z, logp, acceptance probability and decision equal to
-  1e-10, at a step size where some chains accept and others reject.
+  1e-10, at a step size where some chains accept and others reject; and
+  the same from a current density of -inf, which both accept from.
 - A whole run on the banana fixture (`tests/fixtures/examples/banana`,
   64 chains) against the quadrature oracle over its prior box (mean
   (-0.26568, 3.34495), sd (1.67843, 3.80070), the oracle of
@@ -17,6 +18,7 @@
   chains; the chains are independent).
 """
 
+import functools
 import os
 
 import jax
@@ -56,18 +58,34 @@ def oracle_z(x, group=8):
     return (mean - BANANA_MEAN) / mean_se, (sd - BANANA_SD) / sd_se
 
 
-def test_step_matches_jax():
-    eps = 0.2  # accepts some chains and rejects others
+STEP_EPS, STEP_CHAINS, STEP_LEAPFROG = 0.2, 6, 4  # accepts some chains, rejects others
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_step():
+    """The banana's models, the JAX sampler and its jitted step of all
+    chains (compiled once for the tests that use it)."""
     (prior, lik), (jprior, jlik) = models(os.path.join(FIXTURES, "banana"))
-    C, D, L = 6, prior.num_variables, 4
-    js = JSamplerHMC(jprior, jlik, JHMCConfig(num_leapfrog_steps=L))
+    js = JSamplerHMC(jprior, jlik, JHMCConfig(num_leapfrog_steps=STEP_LEAPFROG))
+    step = jax.jit(jax.vmap(lambda z1, l1, k1, im: js._step(z1, l1, k1, STEP_EPS, im),
+                            in_axes=(0, 0, 0, None)))
+    return prior, lik, jprior, js, step
+
+
+def _step_against_jax(minus_inf=()):
+    """One step of 6 chains, the port's against the JAX package's with its
+    draws; the chains at `minus_inf` are given a current density of -inf
+    (as a chain started at a failing prior draw has), which enters the
+    Hamiltonian of both as -inf. Returns the port's decisions."""
+    prior, lik, jprior, js, step = _jax_step()
+    eps, C, D, L = STEP_EPS, STEP_CHAINS, prior.num_variables, STEP_LEAPFROG
     x = np.asarray(jprior.sample(jax.random.PRNGKey(11), (C,)))
     z = js._reparam.from_x(x)
     inv_mass = np.random.default_rng(0).uniform(0.5, 2.0, D)
-    logp = jax.jit(jax.vmap(js._logpost))(z)
+    logp = np.array(jax.jit(jax.vmap(js._logpost))(z))
+    logp[list(minus_inf)] = -np.inf
     keys = jax.random.split(jax.random.PRNGKey(5), C)
-    ref = jax.jit(jax.vmap(lambda z1, l1, k1: js._step(z1, l1, k1, eps, jnp.asarray(inv_mass))))(
-        z, logp, keys)
+    ref = step(z, jnp.asarray(logp), keys, jnp.asarray(inv_mass))
     # the JAX step's draws: momentum from the first split, uniform from the second
     kp, ka = jax.vmap(jax.random.split, out_axes=1)(keys)
     normal = np.asarray(jax.vmap(lambda k: jax.random.normal(k, (D,)))(kp))
@@ -79,14 +97,28 @@ def test_step_matches_jax():
         return torch.as_tensor(np.array(a), **kw)
 
     lp, grad = s.target.value_and_grad(t(z))
-    np.testing.assert_allclose(lp.numpy(), np.asarray(logp), rtol=1e-10)
-    z1, lp1, _, alpha, accept = s.step(t(z), lp, grad, t(eps, dtype=torch.float64),
+    fin = np.isfinite(logp)
+    np.testing.assert_allclose(lp.numpy()[fin], logp[fin], rtol=1e-10)
+    z1, lp1, _, alpha, accept = s.step(t(z), t(logp), grad, t(eps, dtype=torch.float64),
                                        t(inv_mass), t(normal), t(uniform))
     np.testing.assert_array_equal(accept.numpy(), np.asarray(ref[3]))
     np.testing.assert_allclose(z1.numpy(), np.asarray(ref[0]), rtol=1e-10, atol=1e-12)
     np.testing.assert_allclose(lp1.numpy(), np.asarray(ref[1]), rtol=1e-10)
     np.testing.assert_allclose(alpha.numpy(), np.asarray(ref[2]), rtol=1e-10, atol=1e-12)
+    return accept
+
+
+def test_step_matches_jax():
+    accept = _step_against_jax()
     assert accept.any() and not accept.all()
+
+
+def test_step_from_a_density_of_minus_inf_matches_jax():
+    """h1 - h0 = +inf from a current density of -inf: both accept a finite
+    end point with probability 1 (a -inf end point would give NaN, which
+    both count as a rejection)."""
+    accept = _step_against_jax(minus_inf=(0, 3))
+    assert accept[0] and accept[3]
 
 
 def test_banana_run_meets_the_oracle():

@@ -22,6 +22,8 @@ here: the eager solve with forward-mode tangents).
   version's.
 - Gradients are finite wherever the density is, on 256 prior draws, in
   float32 and float64.
+- A patient's uniform at exactly 0 or 1 (ndtri +-inf, a rate inf or 0)
+  leaves the rates' values as they were and the gradient finite.
 - A short NUTS run on one_transit stores the JAX package's `log_prob` of
   its rows (rtol 1e-8); PT on one_transit still runs kernel B2's path and
   never the gradient mode, also after a gradient sampler used the same
@@ -214,3 +216,35 @@ def test_pt_on_one_transit_still_runs_b2(models, monkeypatch):
     rows = torch.as_tensor(res["samples"][:, 0, :], dtype=torch.float32)
     ll = res["log_likelihood"][:, 0]
     np.testing.assert_array_equal(lik.log_prob_batched(rows).double().numpy(), ll)
+
+
+@pytest.mark.parametrize("pk_type", TYPES)
+def test_a_rate_at_its_range_edge_keeps_the_gradient_finite(models, pk_type, monkeypatch):
+    """A patient's uniform at exactly 1 or 0 (its z beyond the sigmoid's
+    range, as a VI draw of large sigma lands) makes ndtri(u) +-inf and the
+    rate inf or 0: the row's density is unchanged (-inf where the solve
+    fails) and its gradient finite (the likelihood's share 0, the recorded
+    departure), where 0 times ndtri's infinite derivative was NaN."""
+    (prior, lik), _ = models[pk_type]
+    monkeypatch.setattr(lik.model, "solver_trips", 128)
+    target = LogPosterior(prior, lik)
+    x = prior.sample(torch.Generator().manual_seed(4), (6,), torch.float64)
+    z = target.reparam.from_x(x)
+    names = list(prior.varset.names)
+    z[0, names.index("patient_abs_0")] = 40.0  # u = 1: ka = inf, the solve fails
+    z[1, names.index("patient_abs_1")] = -800.0  # u = 0: ka = 0
+    z[2, names.index("patient_elim_2")] = 40.0  # kel = inf
+    v, g = target.value_and_grad(z)
+    x = target.reparam.to_x(z)
+    plain, _, _ = lik.model._patient_params(x)
+    lik.model.gradient_mode = True
+    try:
+        guarded, _, _ = lik.model._patient_params(x)
+    finally:
+        lik.model.gradient_mode = False
+    assert torch.isinf(plain["ka"][0, 0]) and plain["ka"][1, 1] == 0
+    assert torch.isinf(plain["kel"][2, 2])
+    for k in ("ka", "kel"):
+        assert torch.equal(guarded[k], plain[k])  # the same values, edges included
+    assert torch.isneginf(v[0]) and torch.isneginf(v[2])
+    assert torch.isfinite(g).all()
