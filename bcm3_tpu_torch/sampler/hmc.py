@@ -40,6 +40,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from bcm3_tpu_torch.tracing import span
+
 logger = logging.getLogger(__name__)
 
 # rows per likelihood call when the stored samples are scored at the end
@@ -167,7 +169,7 @@ class LogPosterior:
         """(logp (C,), d logp / dz (C, D)) of every row of z (C, D). The
         rows are independent, so the gradient of their sum is each row's."""
         self.gradient_evaluations += 1
-        with torch.enable_grad():
+        with span("LogPosterior.value_and_grad"), torch.enable_grad():
             zz = z.detach().requires_grad_(True)
             logp = self(zz)
             (grad,) = torch.autograd.grad(logp.sum(), zz)
@@ -270,7 +272,7 @@ class SamplerHMC:
         z = self.target.reparam.from_x(self.prior.sample(self.generator, (C,), dtype))
         logp, grad = self.target.value_and_grad(z)
 
-        t0 = time.time()
+        t0 = time.perf_counter()
         # ---- warmup with dual averaging (state on the device, float64) ----
         f64 = dict(dtype=torch.float64, device=dev)
         mu = math.log(10.0 * cfg.initial_step_size)
@@ -301,12 +303,12 @@ class SamplerHMC:
         logger.info("HMC warmup done: step size %.4g", float(eps_final))
 
         # ---- sampling ----
-        t_sampling = time.time()
+        t_sampling = time.perf_counter()
         n_accept = torch.zeros((), dtype=torch.int64, device=dev)
         out_z = []
         total_iter = cfg.num_samples * cfg.use_every_nth
         evals_before = self.target.gradient_evaluations
-        with torch.profiler.record_function("SamplerHMC.sampling"):
+        with span("SamplerHMC.sampling"):
             for it in range(total_iter):
                 z, logp, grad, _, accept = self.step(
                     z, logp, grad, eps_final, inv_mass, *self.draws(C, D, dtype)
@@ -315,7 +317,7 @@ class SamplerHMC:
                 if (it + 1) % cfg.use_every_nth == 0:
                     out_z.append(z.clone())
             n_accept = int(n_accept)
-        sampling_seconds = time.time() - t_sampling
+        sampling_seconds = time.perf_counter() - t_sampling
         # where the chains stand, with the adapted step size and mass
         self.state = (z, logp, grad)
         self.step_size, self.inv_mass = eps_final, inv_mass
@@ -324,7 +326,7 @@ class SamplerHMC:
         xs, xs_flat, lp_flat, ll_flat = emit(
             self.sample_handlers, torch.stack(out_z), self.target, self.ladder
         )
-        elapsed = time.time() - t0
+        elapsed = time.perf_counter() - t0
         accept_rate = n_accept / max(total_iter * C, 1)
         logger.info(
             "HMC: %d samples x %d chains in %.2fs (accept %.3f)",

@@ -18,7 +18,8 @@ change. The doubling and the leaf
 index are therefore the same for every chain that is still going, so the
 checkpoint indices are host integers. The host reads one flag per leaf
 (whether any chain is still growing its subtree) and one per doubling;
-`host_syncs` counts them.
+`host_syncs` counts them, and `host_wait_seconds` sums the host's time
+blocked in them.
 
 The transition takes its draws as inputs: the momentum's standard
 normals, each doubling's direction bit and acceptance uniform, and each
@@ -46,6 +47,7 @@ import numpy as np
 import torch
 
 from bcm3_tpu_torch.sampler.hmc import LogPosterior, emit
+from bcm3_tpu_torch.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -128,6 +130,7 @@ class SamplerNUTS:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed if config.seed else 42)
         self.host_syncs = 0
+        self.host_wait_seconds = 0.0
 
     @property
     def expected_emitted_samples(self) -> int:
@@ -135,7 +138,10 @@ class SamplerNUTS:
 
     def _any(self, mask) -> bool:
         self.host_syncs += 1
-        return bool(mask.any())
+        t = time.perf_counter()
+        found = bool(mask.any())
+        self.host_wait_seconds += time.perf_counter() - t
+        return found
 
     def transition(self, z, logp, grad, eps, inv_mass, normal, forward, accept_u, select_u):
         """One NUTS transition of every chain (bcm3_tpu/sampler/nuts.py:139-358).
@@ -196,41 +202,42 @@ class SamplerNUTS:
                 live = growing & ~s_turning & ~s_diverging
                 if leaf > 0 and not self._any(live):
                     break
-                # one leapfrog step of every chain (the masked ones too)
-                r1 = s_r + 0.5 * e * s_grad
-                z1 = s_z + e * inv_mass * r1
-                logp1, grad1 = self.target.value_and_grad(z1)
-                r1 = r1 + 0.5 * e * grad1
-                delta = logp1 - kinetic(r1) - energy0
-                delta = torch.where(torch.isnan(delta), -math.inf, delta)
-                div1 = delta < -_DIVERGENCE_THRESHOLD
-                accept_prob = torch.clamp(torch.exp(delta), max=1.0)
-                r_sum1 = s_r_sum + r1
-                # multinomial proposal update within the subtree
-                lw1 = torch.logaddexp(s_log_weight, delta)
-                take = live & (torch.log(select_u[2**d - 1 + leaf]) < delta - lw1)
-                s_z_prop = torch.where(col(take), z1, s_z_prop)
-                s_logp_prop = torch.where(take, logp1, s_logp_prop)
-                s_grad_prop = torch.where(col(take), grad1, s_grad_prop)
-                # checkpoints and the U-turn checks inside the subtree
-                lo, hi = leaf_idx_to_ckpt_idxs(leaf)
-                if leaf % 2 == 0:
-                    r_ckpts[hi] = r1
-                    r_sum_ckpts[hi] = r_sum1
-                    turn1 = torch.zeros_like(turning)
-                else:
-                    ck = r_ckpts[lo : hi + 1]
-                    seg = r_sum1[None] - r_sum_ckpts[lo : hi + 1] + ck
-                    turn1 = is_turning(inv_mass, ck, r1[None], seg).any(dim=0)
-                s_z = torch.where(col(live), z1, s_z)
-                s_r = torch.where(col(live), r1, s_r)
-                s_grad = torch.where(col(live), grad1, s_grad)
-                s_log_weight = torch.where(live, lw1, s_log_weight)
-                s_r_sum = torch.where(col(live), r_sum1, s_r_sum)
-                s_turning = torch.where(live, turn1, s_turning)
-                s_diverging = torch.where(live, div1, s_diverging)
-                s_accept = torch.where(live, s_accept + accept_prob, s_accept)
-                s_leaves = s_leaves + live.to(s_leaves.dtype)
+                with span("SamplerNUTS.leaf"):
+                    # one leapfrog step of every chain (the masked ones too)
+                    r1 = s_r + 0.5 * e * s_grad
+                    z1 = s_z + e * inv_mass * r1
+                    logp1, grad1 = self.target.value_and_grad(z1)
+                    r1 = r1 + 0.5 * e * grad1
+                    delta = logp1 - kinetic(r1) - energy0
+                    delta = torch.where(torch.isnan(delta), -math.inf, delta)
+                    div1 = delta < -_DIVERGENCE_THRESHOLD
+                    accept_prob = torch.clamp(torch.exp(delta), max=1.0)
+                    r_sum1 = s_r_sum + r1
+                    # multinomial proposal update within the subtree
+                    lw1 = torch.logaddexp(s_log_weight, delta)
+                    take = live & (torch.log(select_u[2**d - 1 + leaf]) < delta - lw1)
+                    s_z_prop = torch.where(col(take), z1, s_z_prop)
+                    s_logp_prop = torch.where(take, logp1, s_logp_prop)
+                    s_grad_prop = torch.where(col(take), grad1, s_grad_prop)
+                    # checkpoints and the U-turn checks inside the subtree
+                    lo, hi = leaf_idx_to_ckpt_idxs(leaf)
+                    if leaf % 2 == 0:
+                        r_ckpts[hi] = r1
+                        r_sum_ckpts[hi] = r_sum1
+                        turn1 = torch.zeros_like(turning)
+                    else:
+                        ck = r_ckpts[lo : hi + 1]
+                        seg = r_sum1[None] - r_sum_ckpts[lo : hi + 1] + ck
+                        turn1 = is_turning(inv_mass, ck, r1[None], seg).any(dim=0)
+                    s_z = torch.where(col(live), z1, s_z)
+                    s_r = torch.where(col(live), r1, s_r)
+                    s_grad = torch.where(col(live), grad1, s_grad)
+                    s_log_weight = torch.where(live, lw1, s_log_weight)
+                    s_r_sum = torch.where(col(live), r_sum1, s_r_sum)
+                    s_turning = torch.where(live, turn1, s_turning)
+                    s_diverging = torch.where(live, div1, s_diverging)
+                    s_accept = torch.where(live, s_accept + accept_prob, s_accept)
+                    s_leaves = s_leaves + live.to(s_leaves.dtype)
 
             # the doubling's outcome, on the chains that grew
             ok = ~s_turning & ~s_diverging
@@ -282,7 +289,8 @@ class SamplerNUTS:
             x0 = self.prior.sample(self.generator, (C,), dtype)
         zs = self.target.reparam.from_x(torch.as_tensor(x0, dtype=dtype, device=dev))
         logps, grads = self.target.value_and_grad(zs)
-        t0 = time.time()
+        t0 = time.perf_counter()
+        waits_before = self.host_wait_seconds
 
         # ---- warmup: dual averaging + windowed diagonal mass, state on
         # the device (float64) so that no iteration waits for the host ----
@@ -301,45 +309,48 @@ class SamplerNUTS:
         # the dual-averaging counter is window-local, as in Stan (see
         # bcm3_tpu/sampler/nuts.py:452-459)
         da_m = 0
-        for it in range(cfg.num_warmup):
-            zs, logps, grads, astat, div, _ = self.transition(
-                zs, logps, grads, torch.exp(log_eps).to(dtype), inv_mass,
-                *self.draws(C, D, dtype),
-            )
-            n_div_warm += div.sum()
-            da_m += 1
-            a = torch.nan_to_num(astat, nan=0.0).double().mean()
-            h_bar = (1 - 1 / (da_m + t0_da)) * h_bar + (cfg.target_accept - a) / (da_m + t0_da)
-            log_eps = mu - math.sqrt(da_m) / gamma * h_bar
-            eta = da_m ** (-kappa)
-            log_eps_bar = eta * log_eps + (1 - eta) * log_eps_bar
+        t_warmup = time.perf_counter()
+        with span("SamplerNUTS.warmup"):
+            for it in range(cfg.num_warmup):
+                zs, logps, grads, astat, div, _ = self.transition(
+                    zs, logps, grads, torch.exp(log_eps).to(dtype), inv_mass,
+                    *self.draws(C, D, dtype),
+                )
+                n_div_warm += div.sum()
+                da_m += 1
+                a = torch.nan_to_num(astat, nan=0.0).double().mean()
+                h_bar = (1 - 1 / (da_m + t0_da)) * h_bar + (cfg.target_accept - a) / (da_m + t0_da)
+                log_eps = mu - math.sqrt(da_m) / gamma * h_bar
+                eta = da_m ** (-kappa)
+                log_eps_bar = eta * log_eps + (1 - eta) * log_eps_bar
 
-            if win_ix < len(windows):
-                lo, hi = windows[win_ix]
-                if lo <= it < hi:
-                    # merge the batch of C positions into the running moments
-                    b = zs.double()
-                    b_mean = b.mean(dim=0)
-                    b_m2 = ((b - b_mean) ** 2).sum(dim=0)
-                    n1 = w_n + C
-                    delta = b_mean - w_mean
-                    w_mean = w_mean + delta * (C / n1)
-                    w_m2 = w_m2 + b_m2 + delta * delta * (w_n * C / n1)
-                    w_n = n1
-                if it == hi - 1:
-                    if w_n > 4:
-                        var = w_m2 / (w_n - 1)
-                        # Stan's shrinkage toward the unit metric
-                        var = (w_n / (w_n + 5.0)) * var + 1e-3 * (5.0 / (w_n + 5.0))
-                        inv_mass = var.to(dtype)
-                    # restart dual averaging around the current step size
-                    mu = math.log(10.0) + log_eps
-                    log_eps_bar = torch.zeros((), **f64)
-                    h_bar = torch.zeros((), **f64)
-                    da_m = 0
-                    w_n, w_mean, w_m2 = 0, torch.zeros(D, **f64), torch.zeros(D, **f64)
-                    win_ix += 1
+                if win_ix < len(windows):
+                    lo, hi = windows[win_ix]
+                    if lo <= it < hi:
+                        # merge the batch of C positions into the running moments
+                        b = zs.double()
+                        b_mean = b.mean(dim=0)
+                        b_m2 = ((b - b_mean) ** 2).sum(dim=0)
+                        n1 = w_n + C
+                        delta = b_mean - w_mean
+                        w_mean = w_mean + delta * (C / n1)
+                        w_m2 = w_m2 + b_m2 + delta * delta * (w_n * C / n1)
+                        w_n = n1
+                    if it == hi - 1:
+                        if w_n > 4:
+                            var = w_m2 / (w_n - 1)
+                            # Stan's shrinkage toward the unit metric
+                            var = (w_n / (w_n + 5.0)) * var + 1e-3 * (5.0 / (w_n + 5.0))
+                            inv_mass = var.to(dtype)
+                        # restart dual averaging around the current step size
+                        mu = math.log(10.0) + log_eps
+                        log_eps_bar = torch.zeros((), **f64)
+                        h_bar = torch.zeros((), **f64)
+                        da_m = 0
+                        w_n, w_mean, w_m2 = 0, torch.zeros(D, **f64), torch.zeros(D, **f64)
+                        win_ix += 1
 
+        warmup_seconds = time.perf_counter() - t_warmup
         eps_final = torch.exp(log_eps_bar).to(dtype)
         logger.info(
             "NUTS warmup done: step size %.4g, %d divergences",
@@ -347,14 +358,14 @@ class SamplerNUTS:
         )
 
         # ---- sampling: step size and mass frozen ----
-        t_sampling = time.time()
+        t_sampling = time.perf_counter()
         out_z = []
         n_div = torch.zeros((), dtype=torch.int64, device=dev)
         depth_sum = torch.zeros((), dtype=torch.int64, device=dev)
         total_iter = cfg.num_samples * cfg.use_every_nth
         evals_before = self.target.gradient_evaluations
         syncs_before = self.host_syncs
-        with torch.profiler.record_function("SamplerNUTS.sampling"):
+        with span("SamplerNUTS.sampling"):
             for it in range(total_iter):
                 zs, logps, grads, _, div, depth = self.transition(
                     zs, logps, grads, eps_final, inv_mass, *self.draws(C, D, dtype)
@@ -364,7 +375,7 @@ class SamplerNUTS:
                 if (it + 1) % cfg.use_every_nth == 0:
                     out_z.append(zs.clone())
             n_div, depth_sum = int(n_div), int(depth_sum)
-        sampling_seconds = time.time() - t_sampling
+        sampling_seconds = time.perf_counter() - t_sampling
         # where the chains stand, with the adapted step size and mass
         self.state = (zs, logps, grads)
         self.step_size, self.inv_mass = eps_final, inv_mass
@@ -372,10 +383,11 @@ class SamplerNUTS:
         grad_evals = self.target.gradient_evaluations - evals_before
         syncs = self.host_syncs - syncs_before
 
-        xs, xs_flat, lp_flat, ll_flat = emit(
-            self.sample_handlers, torch.stack(out_z), self.target, self.ladder
-        )
-        elapsed = time.time() - t0
+        with span("SamplerNUTS.emit"):
+            xs, xs_flat, lp_flat, ll_flat = emit(
+                self.sample_handlers, torch.stack(out_z), self.target, self.ladder
+            )
+        elapsed = time.perf_counter() - t0
         mean_depth = depth_sum / max(total_iter * C, 1)
         logger.info(
             "NUTS: %d samples x %d chains in %.2fs (%d divergences, mean tree depth %.2f)",
@@ -397,4 +409,10 @@ class SamplerNUTS:
             # reads of the sampling loop, per transition
             "gradient_evaluations_per_transition": grad_evals / transitions,
             "host_syncs_per_transition": syncs / transitions,
+            # warmup_seconds: the warm-up loop's wall; host_wait_seconds: the
+            # host's time blocked in its reads of the device (warm-up and
+            # sampling), the untraced measure of how far the device sets
+            # the pace
+            "counters": {"warmup_seconds": warmup_seconds,
+                         "host_wait_seconds": self.host_wait_seconds - waits_before},
         }

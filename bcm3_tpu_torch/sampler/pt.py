@@ -107,6 +107,7 @@ from bcm3_tpu_torch.sampler.proposal import BlockProposal
 from bcm3_tpu_torch.stats.gmm import GMM, fit_gmm_best_aic
 from bcm3_tpu_torch.stats.gmm_device import fit_gmm_best_aic_device_multi
 from bcm3_tpu_torch.stats.mfa import fit_proposal_mtfa
+from bcm3_tpu_torch.tracing import span, traced
 
 logger = logging.getLogger("bcm3_tpu_torch.sampler")
 
@@ -524,8 +525,10 @@ class SamplerPT:
         """Batched prior + likelihood evaluation, x: (C, D). NaNs become
         -inf (proposal rejection), the reference's soft-fail convention
         (reference: LikelihoodPopPKTrajectory.cpp:400-424)."""
-        lprior = self.prior.log_pdf(x)
-        llh = self.likelihood.log_prob_batched(x)
+        with span("SamplerPT.prior"):
+            lprior = self.prior.log_pdf(x)
+        with span("SamplerPT.likelihood"):
+            llh = self.likelihood.log_prob_batched(x)
         if self.likelihood.learning_rate != 1.0:
             llh = llh * self.likelihood.learning_rate
         lprior = torch.where(torch.isnan(lprior), _NEG_INF, lprior)
@@ -633,6 +636,7 @@ class SamplerPT:
             selected=torch.where(m, old.selected, new.selected),
         )
 
+    @traced("SamplerPT.mutate")
     def _mutate(self, state: PTState, proposals, draws: MutateDraws):
         """One mutate move for the whole chain population
         (reference: SamplerPTChain.cpp MutateMove:217-313), over this
@@ -652,42 +656,43 @@ class SamplerPT:
             lower, upper = self._bounds[bi]
             d = len(block)
 
-            # 1. adaptive scale update (skipped for T=0 chains)
-            prop = self._mask_per_chain(prop_mod.update_scales(prop, bd.u_scale), prop)
+            with span("SamplerPT.propose"):
+                # 1. adaptive scale update (skipped for T=0 chains)
+                prop = self._mask_per_chain(prop_mod.update_scales(prop, bd.u_scale), prop)
 
-            # 2. propose new block positions
-            x_block = x[:, idx]
-            gamma = None if bd.gamma is None else bd.gamma.reshape(E, L)
-            clustered = prop.clustered and self._assigner is not None
-            if clustered:
-                # component = spectral cluster of the current full position
-                # (reference: ProposalClusteredCovariance.cpp:26-35), float64
-                # as the JAX package assigns
-                cur_cluster = spectral.assign_batch(self._assigner, x.to(torch.float64))
-                nb, sel = prop_mod.propose_clustered_ensemble(
-                    prop, x_block.reshape(E, L, d), cur_cluster.reshape(E, L),
-                    lower, upper, bd.z.reshape(E, L, d), gamma,
-                )
-            else:
-                nb, sel, log_fwd_resp = prop_mod.propose_ensemble(
-                    prop,
-                    x_block.reshape(E, L, d),
-                    lower,
-                    upper,
-                    bd.gumbel.reshape(E, L, -1),
-                    bd.z.reshape(E, L, d),
-                    gamma,
-                )
-            new_block = nb.reshape(C, d)
-            x_new = x.clone()
-            x_new[:, idx] = new_block
-            # T=0 chains: a direct prior draw replaces the whole vector,
-            # and only in the first block (reference: SamplerPTChain.cpp:221-240)
-            x_new = torch.where(t0[:, None], draws.prior if bi == 0 else x, x_new)
-            # Dirichlet residual overwrite (reference: SamplerPTChain.cpp:270-278)
-            for blk in self.prior.dirichlet_blocks:
-                s, r = blk.start, blk.residual_index
-                x_new[:, r] = 1.0 - x_new[:, s:r].sum(dim=1)
+                # 2. propose new block positions
+                x_block = x[:, idx]
+                gamma = None if bd.gamma is None else bd.gamma.reshape(E, L)
+                clustered = prop.clustered and self._assigner is not None
+                if clustered:
+                    # component = spectral cluster of the current full position
+                    # (reference: ProposalClusteredCovariance.cpp:26-35), float64
+                    # as the JAX package assigns
+                    cur_cluster = spectral.assign_batch(self._assigner, x.to(torch.float64))
+                    nb, sel = prop_mod.propose_clustered_ensemble(
+                        prop, x_block.reshape(E, L, d), cur_cluster.reshape(E, L),
+                        lower, upper, bd.z.reshape(E, L, d), gamma,
+                    )
+                else:
+                    nb, sel, log_fwd_resp = prop_mod.propose_ensemble(
+                        prop,
+                        x_block.reshape(E, L, d),
+                        lower,
+                        upper,
+                        bd.gumbel.reshape(E, L, -1),
+                        bd.z.reshape(E, L, d),
+                        gamma,
+                    )
+                new_block = nb.reshape(C, d)
+                x_new = x.clone()
+                x_new[:, idx] = new_block
+                # T=0 chains: a direct prior draw replaces the whole vector,
+                # and only in the first block (reference: SamplerPTChain.cpp:221-240)
+                x_new = torch.where(t0[:, None], draws.prior if bi == 0 else x, x_new)
+                # Dirichlet residual overwrite (reference: SamplerPTChain.cpp:270-278)
+                for blk in self.prior.dirichlet_blocks:
+                    s, r = blk.start, blk.residual_index
+                    x_new[:, r] = 1.0 - x_new[:, s:r].sum(dim=1)
 
             # 3. evaluate
             new_lprior, new_llh = self._evaluate_rows(x_new)
@@ -731,6 +736,7 @@ class SamplerPT:
         )
         return self._history_add(state, x), new_proposals
 
+    @traced("SamplerPT.exchange")
     def _exchange(self, state: PTState, u: torch.Tensor, pair=None) -> PTState:
         """Replica exchange as a masked chain-axis permutation (reference:
         SamplerPT.cpp DoExchangeMove:277-306, SamplerPTChain.cpp
@@ -831,18 +837,23 @@ class SamplerPT:
         xs, lps, lls = [], [], []
         for _ in range(n_emit):
             for _ in range(self.config.use_every_nth):
-                state, proposals = self._iteration(state, proposals, self.draw(proposals))
-            x, lp, ll = self._emitted(state)
-            if Le != L:
-                # fixed-temperature rows only (reference: SamplerPT.cpp:321-330)
-                x = x.reshape(-1, L, x.shape[-1])[:, L - 1]
-                lp = lp.reshape(-1, L)[:, L - 1]
-                ll = ll.reshape(-1, L)[:, L - 1]
-            xs.append(x)
-            lps.append(lp)
-            lls.append(ll)
+                with span("SamplerPT.draw"):
+                    draws = self.draw(proposals)
+                state, proposals = self._iteration(state, proposals, draws)
+            with span("SamplerPT.emit"):
+                x, lp, ll = self._emitted(state)
+                if Le != L:
+                    # fixed-temperature rows only (reference: SamplerPT.cpp:321-330)
+                    x = x.reshape(-1, L, x.shape[-1])[:, L - 1]
+                    lp = lp.reshape(-1, L)[:, L - 1]
+                    ll = ll.reshape(-1, L)[:, L - 1]
+                xs.append(x)
+                lps.append(lp)
+                lls.append(ll)
         edt = self.config.emit_dtype or self.dtype
-        return state, proposals, tuple(torch.stack(p).to(edt) for p in (xs, lps, lls))
+        with span("SamplerPT.emit"):
+            rows = tuple(torch.stack(p).to(edt) for p in (xs, lps, lls))
+        return state, proposals, rows
 
     def _emitted(self, state: PTState):
         """The (x, lprior, llh) rows that run() emits: this process's rows
@@ -904,7 +915,10 @@ class SamplerPT:
         return dev(x), dev(lprior), dev(llh)
 
     def _init_state(self) -> PTState:
-        x, lprior, llh = self._find_starting_position()
+        t = time.perf_counter()
+        with span("SamplerPT.start_search"):
+            x, lprior, llh = self._find_starting_position()
+        self.start_search_seconds = time.perf_counter() - t
         C = self._rows
 
         def zeros():
@@ -1329,7 +1343,9 @@ class SamplerPT:
         `_adapt_proposals`);
         elapsed_seconds is the whole call's wall, sampling_seconds that of
         the iterations alone (without the start-position search and the
-        adaptation boundaries). Sharded, "ensemble_shard" is (first
+        adaptation boundaries); counters holds start_search_seconds, the
+        wall of this run's start-position search (0 where a checkpoint
+        resumed the run). Sharded, "ensemble_shard" is (first
         ensemble, count) of a rank whose ladders are whole, whose samples
         are then its own ensembles' only (merge them with
         io/output.py's merge_sharded_results), else None; the acceptance
@@ -1350,6 +1366,7 @@ class SamplerPT:
         cfg = self.config
         t_start = time.perf_counter()
         self.adaptation_seconds = 0.0
+        self.start_search_seconds = 0.0  # none where a checkpoint resumes
         self.adaptation_boundaries = 0
         self.adaptation_timings = []
         adaptation_records = []
@@ -1390,6 +1407,7 @@ class SamplerPT:
 
         all_x, all_lprior, all_llh = [], [], []
 
+        @traced("SamplerPT.drain")
         def drain(pending):
             """Wait for a chunk's copy, then pool, store and hand it on."""
             nonlocal progress_rows
@@ -1416,7 +1434,7 @@ class SamplerPT:
         # each segment ends with a drained copy to the host, so its device
         # work is done in here
         t_sampling = time.perf_counter()
-        with torch.profiler.record_function("SamplerPT.sampling"):
+        with span("SamplerPT.sampling"):
             while emitted < cfg.num_samples:
                 # adaptations due at this point (SamplerPT.cpp:231-249)
                 pending = (
@@ -1428,7 +1446,7 @@ class SamplerPT:
                     self._log_statistics(state)
                     logger.info("Updating proposal...")
                     t_adapt = time.perf_counter()
-                    with torch.profiler.record_function("SamplerPT.adaptation"):
+                    with span("SamplerPT.adaptation"):
                         state, record = self._adapt_proposals(state)
                         if self._block is not None:
                             self._check_replicas_agree()
@@ -1450,7 +1468,8 @@ class SamplerPT:
                 while emitted < stop:
                     m = min(size, stop - emitted)
                     state, proposals, rows = self._run_segment(state, proposals, m)
-                    started = pull.start(rows)
+                    with span("SamplerPT.emit"):
+                        started = pull.start(rows)
                     if pending is not None:
                         drain(pending)
                     pending = started
@@ -1464,48 +1483,51 @@ class SamplerPT:
 
         sampling = time.perf_counter() - t_sampling - self.adaptation_seconds
         elapsed = time.perf_counter() - t_start
-        # att_mut is int32 per chain; the population total needs int64
-        evaluations = self._own(state.att_mut).sum(dtype=torch.int64)
-        if self._block is not None:
-            evaluations = collectives.all_reduce_sum(evaluations)
-        self.total_evaluations = int(evaluations)
-        evals_per_sec = self.total_evaluations / max(elapsed, 1e-9)
-        logger.info(
-            "Sampling finished: %d evaluations in %.2fs (%.1f evals/s)",
-            self.total_evaluations,
-            elapsed,
-            evals_per_sec,
-        )
-        self._log_statistics(state)
+        with span("SamplerPT.result"):
+            # att_mut is int32 per chain; the population total needs int64
+            evaluations = self._own(state.att_mut).sum(dtype=torch.int64)
+            if self._block is not None:
+                evaluations = collectives.all_reduce_sum(evaluations)
+            self.total_evaluations = int(evaluations)
+            evals_per_sec = self.total_evaluations / max(elapsed, 1e-9)
+            logger.info(
+                "Sampling finished: %d evaluations in %.2fs (%.1f evals/s)",
+                self.total_evaluations,
+                elapsed,
+                evals_per_sec,
+            )
+            self._log_statistics(state)
 
-        def host(t):
-            return self._gather(t).cpu().numpy()
+            def host(t):
+                return self._gather(t).cpu().numpy()
 
-        if not all_x:  # resumed from a checkpoint of a finished run
-            L, D = self._emit_L, self.num_variables
-            all_x, all_lprior, all_llh = [np.zeros((0, L, D))], [np.zeros((0, L))], [np.zeros((0, L))]
-        return {
-            "samples": np.concatenate(all_x, axis=0),
-            "log_prior": np.concatenate(all_lprior, axis=0),
-            "log_likelihood": np.concatenate(all_llh, axis=0),
-            "temperatures": self.emit_ladder,
-            "acceptance": {
-                "attempted_mutate": host(state.att_mut),
-                "accepted_mutate": host(state.acc_mut),
-                "attempted_exchange": host(state.att_exc),
-                "accepted_exchange": host(state.acc_exc),
-            },
-            "evaluations": self.total_evaluations,
-            "elapsed_seconds": elapsed,
-            "sampling_seconds": sampling,
-            "evals_per_second": evals_per_sec,
-            "adaptation_records": adaptation_records,
-            "adaptation_seconds": self.adaptation_seconds,
-            "adaptation_boundaries": self.adaptation_boundaries,
-            "adaptation_breakdown": self.adaptation_timings,
-            "ensemble_shard": self._emit_shard,
-            "num_ensembles": self.num_ensembles,
-        }
+            if not all_x:  # resumed from a checkpoint of a finished run
+                L, D = self._emit_L, self.num_variables
+                all_x = [np.zeros((0, L, D))]
+                all_lprior, all_llh = [np.zeros((0, L))], [np.zeros((0, L))]
+            return {
+                "samples": np.concatenate(all_x, axis=0),
+                "log_prior": np.concatenate(all_lprior, axis=0),
+                "log_likelihood": np.concatenate(all_llh, axis=0),
+                "temperatures": self.emit_ladder,
+                "acceptance": {
+                    "attempted_mutate": host(state.att_mut),
+                    "accepted_mutate": host(state.acc_mut),
+                    "attempted_exchange": host(state.att_exc),
+                    "accepted_exchange": host(state.acc_exc),
+                },
+                "evaluations": self.total_evaluations,
+                "elapsed_seconds": elapsed,
+                "sampling_seconds": sampling,
+                "evals_per_second": evals_per_sec,
+                "adaptation_records": adaptation_records,
+                "adaptation_seconds": self.adaptation_seconds,
+                "adaptation_boundaries": self.adaptation_boundaries,
+                "adaptation_breakdown": self.adaptation_timings,
+                "ensemble_shard": self._emit_shard,
+                "num_ensembles": self.num_ensembles,
+                "counters": {"start_search_seconds": self.start_search_seconds},
+            }
 
     def _save_checkpoint(self, path: str, state: PTState, proposals, emitted: int):
         """The whole sampler state (io/checkpoint.py): `proposals` are the
